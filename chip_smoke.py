@@ -33,7 +33,29 @@ are built for sm_90a).  Phases, each of which must pass:
 7. one f32 step (TF32 off) with the kernel pair and one without, from the
    same generators and batch: losses within 1e-5 of each other, every
    parameter's gradient within 1e-3 of its largest |value|, and 12 forward
-   and 12 backward launches in the first run, none in the second.
+   and 12 backward launches in the first run, none in the second;
+8. hold the kernels of the kernel configuration against their plain
+   versions on the card: the fused weights + NonlinAttention kernel and
+   the application kernel at B=16, h=4, T in {640, 1280, 2560} with padded
+   keys, the depthwise conv at B=16 and its backward at B=8 at the levels'
+   shapes (C=512 with T 1280/640/320 and k 31/15/7, C=192 with T=128 and
+   k=9), in bf16 (one rounding; na also the rounding of the weights it
+   sums) and f32 (2e-6, for the f32 sums over T keys 2e-6 of max(1, the
+   tensor's largest |value|); the backward's
+   outputs within 1e-4 of each tensor's largest |value|, plus one rounding
+   in bf16), and time each at the main path's shape beside its plain
+   version and the PyTorch call that computes the same function;
+9. drive the B=8 request of phase 3 through ``InferencePipeline`` in the
+   kernel configuration (every kernel switch on): launches as the model's
+   switches and gates predict (no inference-weights launch), its wall
+   printed beside the default configuration's; then the same request in
+   f32 (TF32 off) in the kernel configuration, within PATH_ATOL of phase
+   4's plain path;
+10. take 2 full-width bf16 training steps in the kernel configuration (the
+   conv pair beside the attention pair), with exactly one conv forward and
+   one conv backward launch per ConvolutionModule a step, then one f32
+   step with the conv pair and one without, from the same generators and
+   batch, held as in phase 7.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -43,6 +65,7 @@ CUDA is unavailable or the port is not beside this script.
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -107,6 +130,35 @@ def attention_traffic(B, h, T, qd, pd, train=False):
     return bytes_moved, B * h * T * T * (2 * qd + 2 * pd)
 
 
+def nonlin_traffic(B, h, T, qd, pd, hid):
+    """(bytes, operations) of the fused weights + NonlinAttention kernel in
+    bf16: the weights kernel's, plus nv read and na written once and head
+    0's (T, T) @ (T, hid) products."""
+    wb, wf = attention_traffic(B, h, T, qd, pd)
+    return wb + 2 * 2 * B * T * hid, wf + 2 * B * T * T * hid
+
+
+def apply_traffic(B, h, T, vd):
+    """(bytes, operations) of the application kernel in bf16: the weights
+    and values read once, the output written once; w @ v."""
+    return 2 * (B * h * T * T + 2 * B * h * T * vd), 2 * B * h * T * T * vd
+
+
+def conv_traffic(B, T, C, k, itemsize=2):
+    """(bytes, operations) of the depthwise conv: v, w and b read once, the
+    output written once; k multiply-adds and the bias per output."""
+    return (itemsize * (2 * B * T * C + k * C + C),
+            2 * B * T * C * k + B * T * C)
+
+
+def conv_bwd_traffic(B, T, C, k, itemsize=2):
+    """(bytes, operations) of the conv backward: v, g and w read once, dv,
+    dw and db written once (all in the inputs' dtype); the dv and dw
+    multiply-adds and the db sum."""
+    return (itemsize * (3 * B * T * C + 2 * k * C + C),
+            4 * B * T * C * k + B * T * C)
+
+
 def attention_inputs(B, h, T, qd, pd, seed, dtype, device="cuda",
                      scale=1.0):
     """q, k, p, pe in ``dtype`` and a key mask with padded rows; row 3 is
@@ -143,11 +195,24 @@ TRAIN_STEPS = 6
 TRAIN_LAUNCHES_PER_STEP = 12
 
 
+# the kernel configuration's training run: the attention pair as in phase 6
+# and, per ConvolutionModule, one conv forward and one conv backward a step
+CONFIG_TRAIN_STEPS = 2
+
+
 def kernel_wrappers():
+    """Every kernel's wrapper, in the order of the kernel table."""
+    from zipvoice_torch.kernels import depthwise_conv as dc
     from zipvoice_torch.kernels import rel_pos_attention as ra
 
-    return (ra.rel_pos_attention_weights, ra.rel_pos_attention_weights_train,
-            ra.rel_pos_attention_weights_bwd)
+    return (ra.rel_pos_attention_weights, ra.rel_pos_attention_weights_nonlin,
+            ra.attention_apply, ra.rel_pos_attention_weights_train,
+            ra.rel_pos_attention_weights_bwd, dc.depthwise_conv1d,
+            dc.depthwise_conv1d_bwd)
+
+
+def launch_counts():
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
 def reset_launches():
@@ -209,22 +274,46 @@ def phase_kernels(card, seed):
 
 
 def expected_launches(model, S, T, num_step):
-    """Kernel launches for one sample: every layer whose level length
-    passes the gate, per fm_decoder call, plus the text encoder's once."""
-    from zipvoice_torch.models.zipformer import MIN_SEQ_LEN, EncoderStack
+    """Each kernel's launches for one sample, from the model's switches and
+    gates: per fm_decoder call (num_step of them) and the text encoder's
+    once, every layer whose level passes a kernel's gate launches it (the
+    fused kernel in place of the weights kernel where it is on), and every
+    ConvolutionModule with its kernel on launches the conv."""
+    from collections import Counter
+
+    from zipvoice_torch.models.zipformer import (
+        MIN_APPLY_SEQ_LEN,
+        MIN_SEQ_LEN,
+        EncoderStack,
+    )
 
     def count(zipformer, length):
-        n = 0
+        n = Counter()
         for stack in zipformer.encoders:
             ds = stack.downsample_factor if isinstance(stack, EncoderStack) \
                 else 1
             enc = stack.encoder if isinstance(stack, EncoderStack) else stack
             level = (length + ds - 1) // ds
-            n += sum(layer.self_attn_weights.use_kernel
-                     and level >= MIN_SEQ_LEN for layer in enc.layers)
+            for layer in enc.layers:
+                fused = layer.fuse_nonlin and level >= MIN_SEQ_LEN
+                n["rel_pos_attention_weights_nonlin"] += fused
+                n["rel_pos_attention_weights"] += (
+                    not fused and layer.self_attn_weights.use_kernel
+                    and level >= MIN_SEQ_LEN)
+                n["attention_apply"] += sum(
+                    a.use_kernel and level >= MIN_APPLY_SEQ_LEN
+                    for a in (layer.self_attn1, layer.self_attn2))
+                n["depthwise_conv1d"] += sum(
+                    c.use_kernel
+                    for c in (layer.conv_module1, layer.conv_module2))
         return n
 
-    return count(model.fm_decoder, T) * num_step + count(model.text_encoder, S)
+    want = {fn.__name__: 0 for fn in kernel_wrappers()}
+    for name, n in count(model.fm_decoder, T).items():
+        want[name] += n * num_step
+    for name, n in count(model.text_encoder, S).items():
+        want[name] += n
+    return want
 
 
 def phase_main_path(card, seed, num_step):
@@ -235,9 +324,6 @@ def phase_main_path(card, seed, num_step):
         build_base,
         micro_batches,
         run_request,
-    )
-    from zipvoice_torch.kernels.rel_pos_attention import (
-        rel_pos_attention_weights,
     )
 
     t0 = time.perf_counter()
@@ -263,29 +349,44 @@ def phase_main_path(card, seed, num_step):
     outputs = []
     for req, (B, S, T) in zip(reqs, plans):
         noise_state = pipe.rng.get_state()
-        before = rel_pos_attention_weights.launches
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        feats, lens, wavs = run_request(pipe, req, num_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launched = rel_pos_attention_weights.launches - before
+        before = launch_counts()
+        feats, lens, wavs, wall = timed_request(pipe, req, num_step)
+        launched = {n: c - before[n] for n, c in launch_counts().items()}
         want = expected_launches(model, S, T, num_step)
         audio_s = sum(len(w) for w in wavs) / pipe.sampling_rate
         print(f"request B={len(req['texts'])} (bucket B={B} S={S} T={T}): "
               f"{num_step} steps + vocoder in {wall:.3f} s wall for "
-              f"{audio_s:.2f} s of audio, kernel launches {launched} "
-              f"(expected {want}) [{card}]", flush=True)
+              f"{audio_s:.2f} s of audio, kernel launches "
+              f"{launched['rel_pos_attention_weights']} (expected "
+              f"{want['rel_pos_attention_weights']}) [{card}]", flush=True)
         if launched != want:
             raise AssertionError(f"launches {launched} != {want}")
-        for f, n, w in zip(feats, lens, wavs):
-            if not (np.isfinite(f[:n]).all() and np.isfinite(w).all()):
-                raise AssertionError("non-finite output")
-            if w.shape != (n * 256,):
-                raise AssertionError(f"wav {w.shape} for {n} frames")
-        outputs.append((feats, lens, noise_state))
-    launches = rel_pos_attention_weights.launches
+        check_outputs(feats, lens, wavs)
+        outputs.append((feats, lens, noise_state, wall, (B, S, T)))
+    launches = launch_counts()["rel_pos_attention_weights"]
     return vocos, reqs[-1], outputs[-1], launches
+
+
+def timed_request(pipe, req, num_step):
+    """One request, synchronized: (feats, lens, wavs, wall seconds)."""
+    import torch
+
+    from zipvoice_torch.infer.workload import run_request
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    feats, lens, wavs = run_request(pipe, req, num_step)
+    torch.cuda.synchronize()
+    return feats, lens, wavs, time.perf_counter() - t
+
+
+def check_outputs(feats, lens, wavs):
+    """Finite features and audio, 256 samples a frame."""
+    for f, n, w in zip(feats, lens, wavs):
+        if not (np.isfinite(f[:n]).all() and np.isfinite(w).all()):
+            raise AssertionError("non-finite output")
+        if w.shape != (n * 256,):
+            raise AssertionError(f"wav {w.shape} for {n} frames")
 
 
 def phase_f32_check(card, seed, num_step, vocos, req, bf16_out):
@@ -321,6 +422,7 @@ def phase_f32_check(card, seed, num_step, vocos, req, bf16_out):
           f"[{card}]", flush=True)
     if not d_kernel <= PATH_ATOL:
         raise AssertionError(f"kernel path disagrees: {d_kernel}")
+    return runs[False]
 
 
 def bwd_traffic(B, h, T, qd, pd, itemsize, penalty):
@@ -446,7 +548,6 @@ def phase_train(card, seed):
 
     from zipvoice_torch.train.workload import build_trainer, train_batch
 
-    infer_fn, train_fn, bwd_fn = kernel_wrappers()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model, opt, step = build_trainer(seed)
@@ -463,7 +564,7 @@ def phase_train(card, seed):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    launches = launch_counts()
     moved = max(float((p.detach() - b).abs().max())
                 for p, b in zip(model.parameters(), before))
     med = float(np.median(walls[1:]))
@@ -481,50 +582,42 @@ def phase_train(card, seed):
         raise AssertionError("non-finite loss or gradient norm")
     if not moved > 0:
         raise AssertionError("parameters did not change")
-    want = TRAIN_LAUNCHES_PER_STEP * TRAIN_STEPS
-    if (launches[train_fn.__name__] != want or launches[bwd_fn.__name__]
-            != want or launches[infer_fn.__name__] != 0):
-        raise AssertionError(f"launches {launches}, want {want} forward and "
-                             f"{want} backward")
+    want = dict.fromkeys(launches, 0)
+    want["rel_pos_attention_weights_train"] = TRAIN_LAUNCHES_PER_STEP * \
+        TRAIN_STEPS
+    want["rel_pos_attention_weights_bwd"] = TRAIN_LAUNCHES_PER_STEP * \
+        TRAIN_STEPS
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
     del model, opt, step, before
     torch.cuda.empty_cache()
     return launches, batch
 
 
-def phase_train_f32_check(card, seed, batch):
-    """One f32 training loss and backward (TF32 off) with the kernel pair
-    and without it, from the same generators, coins and batch; the first
-    must launch the pair at every gated layer, the second never."""
-    import torch
-
-    from zipvoice_torch.models.zipformer import (
-        TrainGenerators,
-        set_attention_kernel,
-    )
-    from zipvoice_torch.models.zipvoice import build_zipvoice
+def f32_train_run(model, seed, batch):
+    """One f32 training loss and backward (TF32 off) from generators seeded
+    with ``seed``: (loss, {name: gradient}, each kernel's launches)."""
+    from zipvoice_torch.models.zipformer import TrainGenerators
     from zipvoice_torch.ops.schedule import adjusted_batch_count
     from zipvoice_torch.train.train_step import draw_inputs
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model = build_zipvoice(vocab_size=360, dtype=torch.float32, seed=seed,
-                           train=True)
-    runs, launches = {}, {}
-    for use_kernel in (True, False):
-        set_attention_kernel(model, use_kernel)
-        model.zero_grad(set_to_none=True)
-        reset_launches()
-        gens = TrainGenerators(seed, "cuda")
-        t, noise, span = draw_inputs(gens, batch)
-        loss = model(**batch, noise=noise, t=t, speech_condition_mask=span,
-                     gens=gens, train=True, dropout_rate=None,
-                     batch_count=adjusted_batch_count(0, 250.0))
-        loss.backward()
-        runs[use_kernel] = (loss.item(), {
-            n: p.grad.detach().clone() for n, p in model.named_parameters()
-        })
-        launches[use_kernel] = [fn.launches for fn in kernel_wrappers()]
-    (lk, gk), (lp, gp) = runs[True], runs[False]
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    gens = TrainGenerators(seed, "cuda")
+    t, noise, span = draw_inputs(gens, batch)
+    loss = model(**batch, noise=noise, t=t, speech_condition_mask=span,
+                 gens=gens, train=True, dropout_rate=None,
+                 batch_count=adjusted_batch_count(0, 250.0))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return loss.item(), grads, launch_counts()
+
+
+def compare_train_runs(card, what, got, want, launches_got, launches_want):
+    """Hold one f32 training run against another (loss within
+    STEP_LOSS_RTOL, every gradient within STEP_GRAD_RTOL of its tensor's
+    largest |value|) and each run's launches against what it must launch."""
+    (lk, gk, ck), (lp, gp, cp) = got, want
     d_loss = abs(lk - lp) / abs(lp)
     worst, worst_name = 0.0, ""
     for n in gp:
@@ -532,21 +625,364 @@ def phase_train_f32_check(card, seed, batch):
              / gp[n].abs().max().clamp(min=1e-30)).item()
         if r > worst:
             worst, worst_name = r, n
-    print(f"f32 training step, TF32 off, B=8 T=1280: loss kernel {lk:.6f} "
-          f"plain {lp:.6f} (relative |d| {d_loss:.2e}, tol "
+    nonzero = {c: {k: v for k, v in d.items() if v} for c, d in
+               (("with", ck), ("without", cp))}
+    print(f"f32 training step, TF32 off, B=8 T=1280, {what}: loss with "
+          f"{lk:.6f} without {lp:.6f} (relative |d| {d_loss:.2e}, tol "
           f"{STEP_LOSS_RTOL:.0e}); worst gradient max|d|/max|g| "
           f"{worst:.2e} at {worst_name} (tol {STEP_GRAD_RTOL:.0e}); "
-          f"launches (inference, train, bwd) with the pair "
-          f"{launches[True]}, without {launches[False]} [{card}]",
-          flush=True)
-    n = TRAIN_LAUNCHES_PER_STEP
-    if launches[True] != [0, n, n] or launches[False] != [0, 0, 0]:
-        raise AssertionError(f"launches {launches}, want [0, {n}, {n}] with "
-                             f"the pair and none without")
+          f"launches {nonzero} [{card}]", flush=True)
+    if ck != launches_got or cp != launches_want:
+        raise AssertionError(f"launches {ck} and {cp}, want {launches_got} "
+                             f"and {launches_want}")
     if not d_loss <= STEP_LOSS_RTOL:
         raise AssertionError(f"losses disagree: {lk} vs {lp}")
     if not worst <= STEP_GRAD_RTOL:
         raise AssertionError(f"gradients disagree at {worst_name}: {worst}")
+
+
+def phase_train_f32_check(card, seed, batch):
+    """One f32 training loss and backward (TF32 off) with the kernel pair
+    and without it, from the same generators, coins and batch; the first
+    must launch the pair at every gated layer, the second never.  Returns
+    the model and the run with the pair, for phase 10."""
+    import torch
+
+    from zipvoice_torch.models.zipformer import set_attention_kernel
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_zipvoice(vocab_size=360, dtype=torch.float32, seed=seed,
+                           train=True)
+    runs = {}
+    for use_kernel in (True, False):
+        set_attention_kernel(model, use_kernel)
+        runs[use_kernel] = f32_train_run(model, seed, batch)
+    none = dict.fromkeys(launch_counts(), 0)
+    pair = dict(none, rel_pos_attention_weights_train=TRAIN_LAUNCHES_PER_STEP,
+                rel_pos_attention_weights_bwd=TRAIN_LAUNCHES_PER_STEP)
+    compare_train_runs(card, "attention pair vs plain path", runs[True],
+                       runs[False], pair, none)
+    set_attention_kernel(model, True)
+    return model, runs[True]
+
+
+# the conv levels of the main path: (C, T, k) of the fm_decoder's T, T/2 and
+# T/4 stacks and of the text encoder
+CONV_LEVELS = ((512, 1280, 31), (512, 640, 15), (512, 320, 7), (192, 128, 9))
+# the conv backward vs its plain version: f32 sums over B x T products in
+# another order, within 1e-4 of each tensor's largest |value|, plus in bf16
+# the one rounding of the output dtype
+CONV_BWD_RTOL = 1e-4
+
+
+def close_ratio(got, want, dtype, sums=False, spread=None):
+    """(max|d|, the largest |d| over its bound): bf16 one rounding,
+    2^-7 |want| + 1e-6, plus 2^-7 ``spread`` where the output sums inputs
+    that the two sides round each on their own (na sums weights that may
+    differ by one rounding: spread = w[:, 0] @ |nv|); f32 F32_ATOL, for
+    ``sums`` (f32 sums of T products: na and w @ v) F32_ATOL of max(1, the
+    tensor's largest |value|).  Both sides sum in f32 in different orders;
+    on an H100 the plain version's cuBLAS sum was the farther from an f64
+    sum (3.7-6.5e-6 at |value| about 5, the kernel's 0.7-3.7e-6), past an
+    absolute 2e-6."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = BF16_RTOL * want.float().abs() + BF16_ATOL
+        if spread is not None:
+            bound = bound + BF16_RTOL * spread
+    elif sums:
+        bound = F32_ATOL * max(1.0, want.abs().max().item())
+    else:
+        bound = F32_ATOL
+    return diff.max().item(), (diff / bound).max().item()
+
+
+def phase_config_kernels(card, seed):
+    """The kernel configuration's kernels against their plain versions on
+    the card, each dtype, the main path's shapes; times at the largest."""
+    import torch
+    import torch.nn.functional as F
+
+    from zipvoice_torch.kernels.depthwise_conv import (
+        depthwise_conv1d,
+        depthwise_conv1d_bwd,
+        depthwise_conv1d_bwd_ref,
+        depthwise_conv1d_ref,
+    )
+    from zipvoice_torch.kernels.rel_pos_attention import (
+        attention_apply,
+        attention_apply_ref,
+        rel_pos_attention_weights_nonlin,
+        rel_pos_attention_weights_nonlin_ref,
+    )
+
+    # the plain versions' f32 matmuls and convolutions stay f32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, h, qd, pd, hid, vd = 16, 4, 32, 4, 384, 12
+    entries = {}
+    worst = dict.fromkeys(("rel_pos_attention_weights_nonlin",
+                           "attention_apply", "depthwise_conv1d",
+                           "depthwise_conv1d_bwd"), 0.0)
+
+    def record(name, err, ratio, what):
+        worst[name] = max(worst[name], err)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"({what}): {ratio}")
+
+    for T in (640, 1280, 2560):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = attention_inputs(B, h, T, qd, pd, seed + T, dtype)
+            g = torch.Generator(device="cuda").manual_seed(seed + T + 1)
+            nv = torch.randn(B, T, hid, generator=g, device="cuda").to(dtype)
+            v = torch.randn(B, h, T, vd, generator=g, device="cuda").to(dtype)
+            w, na = rel_pos_attention_weights_nonlin(*args, nv)
+            torch.cuda.synchronize()
+            want_w, want_na = rel_pos_attention_weights_nonlin_ref(*args, nv)
+            ew, rw = close_ratio(w, want_w, dtype)
+            spread = torch.matmul(want_w[:, 0].float(), nv.float().abs())
+            en, rn = close_ratio(na, want_na, dtype, sums=True, spread=spread)
+            del want_w, want_na, spread
+            out = attention_apply(w, v)
+            torch.cuda.synchronize()
+            ea, ra = close_ratio(out, attention_apply_ref(w, v), dtype,
+                                 sums=True)
+            tag = f"B={B} h={h} T={T} {str(dtype)[6:]}"
+            print(f"kernel rel_pos_attention_weights_nonlin {tag} hid={hid}: "
+                  f"weights max|d| {ew:.3e} (|d|/tol {rw:.3f}), na max|d| "
+                  f"{en:.3e} (|d|/tol {rn:.3f}); kernel attention_apply vd="
+                  f"{vd}: max|d| {ea:.3e} (|d|/tol {ra:.3f}) (tol 1: bf16 "
+                  f"2^-7|want|+1e-6, for na + 2^-7 w0 @ |nv|; f32 "
+                  f"{F32_ATOL:.0e}, for na and w @ v of max(1, max|want|))",
+                  flush=True)
+            record("rel_pos_attention_weights_nonlin", max(ew, en),
+                   max(rw, rn), tag)
+            record("attention_apply", ea, ra, tag)
+            if T == 1280 and dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: rel_pos_attention_weights_nonlin(
+                    *args, nv), iters=20)
+                plain_ms = cuda_ms(
+                    lambda: rel_pos_attention_weights_nonlin_ref(*args, nv),
+                    iters=5)
+                b_ms, b_by = bound(*nonlin_traffic(B, h, T, qd, pd, hid))
+                entries["rel_pos_attention_weights_nonlin"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)
+                a_ms = cuda_ms(lambda: attention_apply(w, v), iters=20)
+                a_plain = cuda_ms(lambda: attention_apply_ref(w, v), iters=5)
+                # the one PyTorch call: a batched bf16 matmul (cuBLAS) on
+                # the same contiguous (B, h, T, T) and (B, h, T, 12) tensors
+                a_lib = cuda_ms(lambda: torch.matmul(w, v), iters=20)
+                ab_ms, ab_by = bound(*apply_traffic(B, h, T, vd))
+                entries["attention_apply"] = dict(
+                    ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms, bound_by=ab_by,
+                    library_ms=a_lib)
+                print(f"timed {tag} [{card}]: nonlin {ms:.4f} ms (plain "
+                      f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms, {b_by}, "
+                      f"library_ms: none); apply {a_ms:.4f} ms (plain "
+                      f"{a_plain:.4f} ms, bound {ab_ms:.4f} ms, {ab_by}, "
+                      f"torch.matmul {a_lib:.4f} ms)", flush=True)
+            del args, nv, v, w, na, out
+            torch.cuda.empty_cache()
+
+    for C, T, k in CONV_LEVELS:
+        for dtype in (torch.bfloat16, torch.float32):
+            # the model's own scales: unit activations, filter and bias
+            # drawn as nn.Conv1d draws them, U(-1/sqrt(k), 1/sqrt(k))
+            g = torch.Generator(device="cuda").manual_seed(seed + C + T + k)
+            lim = k ** -0.5
+
+            def uniform(*shape):
+                return ((2 * torch.rand(*shape, generator=g, device="cuda")
+                         - 1) * lim).to(dtype)
+
+            w, b = uniform(C, k), uniform(C)
+            v = torch.randn(B, T, C, generator=g, device="cuda").to(dtype)
+            got = depthwise_conv1d(v, w, b)
+            torch.cuda.synchronize()
+            ef, rf = close_ratio(got, depthwise_conv1d_ref(v, w, b), dtype)
+            tag = f"C={C} T={T} k={k} {str(dtype)[6:]}"
+            record("depthwise_conv1d", ef, rf, f"B={B} {tag}")
+            Bt = 8
+            vt = v[:Bt].contiguous()
+            gt = torch.randn(Bt, T, C, generator=g, device="cuda").to(dtype)
+            got_b = depthwise_conv1d_bwd(vt, gt, w)
+            torch.cuda.synchronize()
+            want_b = depthwise_conv1d_bwd_ref(vt, gt, w)
+            ratios = []
+            for a, r in zip(got_b, want_b):
+                tol = CONV_BWD_RTOL * r.float().abs().max().item()
+                if dtype == torch.bfloat16:
+                    tol = tol + BF16_RTOL * r.float().abs()
+                d = (a.float() - r.float()).abs()
+                ratios.append((d / tol).max().item())
+                worst["depthwise_conv1d_bwd"] = max(
+                    worst["depthwise_conv1d_bwd"], d.max().item())
+            print(f"kernel depthwise_conv1d B={B} {tag}: max|d| {ef:.3e} "
+                  f"(|d|/tol {rf:.3f}); depthwise_conv1d_bwd B={Bt}: |d|/tol "
+                  f"dv {ratios[0]:.3f}, dw {ratios[1]:.3f}, db "
+                  f"{ratios[2]:.3f} (tol 1: {CONV_BWD_RTOL:.0e} max|want| "
+                  f"+ in bf16 2^-7|want|)", flush=True)
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"conv backward disagrees: {tag} "
+                                     f"{ratios}")
+            if (C, T, k) == CONV_LEVELS[0] and dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: depthwise_conv1d(v, w, b), iters=20)
+                plain_ms = cuda_ms(lambda: depthwise_conv1d_ref(v, w, b),
+                                   iters=5)
+                # the one PyTorch call: F.conv1d in bf16 on the
+                # (B, C, T) layout it takes, made contiguous before the
+                # timed window (the port's default path also pays two
+                # transposes around it)
+                v_ct = v.transpose(1, 2).contiguous()
+                w3 = w[:, None, :].contiguous()
+                lib = cuda_ms(lambda: F.conv1d(v_ct, w3, b, padding=k // 2,
+                                               groups=C), iters=20)
+                b_ms, b_by = bound(*conv_traffic(B, T, C, k))
+                entries["depthwise_conv1d"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib)
+                bms = cuda_ms(lambda: depthwise_conv1d_bwd(vt, gt, w),
+                              iters=20)
+                bplain = cuda_ms(lambda: depthwise_conv1d_bwd_ref(vt, gt, w),
+                                 iters=5)
+                # aten.convolution_backward in bf16 for dv, dw and
+                # db on contiguous (B, C, T) tensors
+                vt_ct = vt.transpose(1, 2).contiguous()
+                gt_ct = gt.transpose(1, 2).contiguous()
+                blib = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                    gt_ct, vt_ct, w3, [C], [1], [k // 2], [1], False, [0], C,
+                    [True, True, True]), iters=20)
+                bb_ms, bb_by = bound(*conv_bwd_traffic(Bt, T, C, k))
+                entries["depthwise_conv1d_bwd"] = dict(
+                    ms=bms, plain_ms=bplain, bound_ms=bb_ms, bound_by=bb_by,
+                    library_ms=blib)
+                print(f"timed conv C={C} T={T} k={k} bf16 [{card}]: forward "
+                      f"B={B} {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                      f"{b_ms:.4f} ms, {b_by}, F.conv1d {lib:.4f} ms); "
+                      f"backward B={Bt} {bms:.4f} ms (plain {bplain:.4f} ms, "
+                      f"bound {bb_ms:.4f} ms, {bb_by}, "
+                      f"aten.convolution_backward {blib:.4f} ms)",
+                      flush=True)
+            del v, w, b, vt, gt, got, got_b, want_b
+            torch.cuda.empty_cache()
+    for name, err in worst.items():
+        entries[name]["max_abs_err"] = err
+    return entries
+
+
+def phase_config_request(card, seed, num_step, vocos, req, bf16_out,
+                         f32_plain):
+    """Phase 3's B=8 request in the kernel configuration: launches as the
+    model predicts, its wall beside the default configuration's; then in
+    f32 against phase 4's plain path."""
+    import torch
+
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import run_request, sample
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+
+    feats0, lens0, noise_state, default_wall, (_, S, T) = bf16_out
+    model = build_zipvoice(vocab_size=360, dtype=torch.bfloat16, seed=seed,
+                           kernel_config=True)
+    pipe = InferencePipeline(model, vocos, seed=seed)
+    run_request(pipe, req, num_step=1)  # first touch, not counted
+    pipe.rng.set_state(noise_state)
+    reset_launches()
+    feats, lens, wavs, wall = timed_request(pipe, req, num_step)
+    launched = launch_counts()
+    want = expected_launches(model, S, T, num_step)
+    check_outputs(feats, lens, wavs)
+    if not np.array_equal(lens, lens0):
+        raise AssertionError("lengths differ from the default configuration")
+    n = int(lens.max())
+    d_default = float(np.abs(feats[:, :n] - feats0[:, :n]).max())
+    print(f"kernel configuration, B=8 request (S={S} T={T}), {num_step} "
+          f"steps + vocoder, bf16: {wall:.3f} s wall (default configuration "
+          f"{default_wall:.3f} s); launches "
+          f"{ {k: v for k, v in launched.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }); mel max|d| vs the "
+          f"default configuration {d_default:.3e} [{card}]", flush=True)
+    if launched != want or want["rel_pos_attention_weights"] != 0:
+        raise AssertionError(f"launches {launched}, want {want} (and no "
+                             f"inference-weights launch)")
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_zipvoice(vocab_size=360, dtype=torch.float32, seed=seed,
+                           kernel_config=True)
+    pipe = InferencePipeline(model, vocos, seed=seed)
+    pipe.rng.set_state(noise_state)
+    fk, lk = sample(pipe, req, num_step)
+    fp, lp = f32_plain
+    if not np.array_equal(lk, lp):
+        raise AssertionError("lengths differ between runs")
+    n = int(lk.max())
+    d = float(np.abs(fk[:, :n] - fp[:, :n]).max())
+    print(f"f32, TF32 off, B=8 T=1280: kernel configuration vs plain path "
+          f"mel max|d| {d:.3e} (tol {PATH_ATOL:.0e}) [{card}]", flush=True)
+    if not d <= PATH_ATOL:
+        raise AssertionError(f"kernel configuration disagrees: {d}")
+    return launched
+
+
+def phase_config_train(card, seed, batch, f32_model, f32_pair_run):
+    """CONFIG_TRAIN_STEPS full-width bf16 steps in the kernel
+    configuration, then phase 7's f32 run again with the conv pair on."""
+    import torch
+
+    from zipvoice_torch.models.zipformer import (
+        ConvolutionModule,
+        set_conv_kernel,
+    )
+    from zipvoice_torch.train.workload import build_trainer
+
+    model, opt, step = build_trainer(seed, kernel_config=True)
+    n_conv = sum(m.use_kernel for m in model.modules()
+                 if isinstance(m, ConvolutionModule))
+    torch.cuda.synchronize()
+    reset_launches()
+    walls, metrics = [], []
+    for _ in range(CONFIG_TRAIN_STEPS):
+        t = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = launch_counts()
+    per_step = dict.fromkeys(launches, 0)
+    per_step.update(
+        rel_pos_attention_weights_train=TRAIN_LAUNCHES_PER_STEP,
+        rel_pos_attention_weights_bwd=TRAIN_LAUNCHES_PER_STEP,
+        depthwise_conv1d=n_conv, depthwise_conv1d_bwd=n_conv)
+    want = {k: v * CONFIG_TRAIN_STEPS for k, v in per_step.items()}
+    print(f"training, kernel configuration, B=8 T=1280 S=128, "
+          f"{CONFIG_TRAIN_STEPS} bf16 steps: losses "
+          f"{[round(m['loss'], 4) for m in metrics]}, grad norms "
+          f"{[round(m['grad_norm'], 3) for m in metrics]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({n_conv} "
+          f"ConvolutionModules); step wall {[round(w, 4) for w in walls]} s "
+          f"[{card}]", flush=True)
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError("non-finite loss or gradient norm")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    set_conv_kernel(f32_model, True)
+    run = f32_train_run(f32_model, seed, batch)
+    pair = dict(per_step, depthwise_conv1d=0, depthwise_conv1d_bwd=0)
+    compare_train_runs(card, "conv pair vs F.conv1d (attention pair on "
+                       "in both)", run, f32_pair_run, per_step, pair)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -578,36 +1014,76 @@ def main(argv=None) -> int:
     print(f"build: {len(names)} kernel source(s) for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
+        entry = ""
         for line in report.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                print(f"  {name}: {line.strip()}")
+            found = re.search(
+                r"entry function '_Z\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
+            if found:
+                # the kernel's name and its template arguments, mangled
+                n, rest = int(found.group(1)), found.group(2)
+                entry = rest[:n] + "<" + rest[n:].split("Ev", 1)[0] + ">"
+            elif "ptxas info" in line and "Used" in line:
+                print(f"  {name}: {entry}: {line.split(':', 1)[1].strip()}")
+            elif "spill" in line:
+                print(f"  {name}: {entry}: {line.strip()}")
 
     measured = phase_kernels(card, args.seed)
     vocos, req, bf16_out, launches = phase_main_path(card, args.seed,
                                                      args.num_step)
-    phase_f32_check(card, args.seed, args.num_step, vocos, req, bf16_out)
-    del vocos, req, bf16_out
+    f32_plain = phase_f32_check(card, args.seed, args.num_step, vocos, req,
+                                bf16_out)
     measured.update(phase_train_kernels(card, args.seed))
     train_launches, batch = phase_train(card, args.seed)
-    phase_train_f32_check(card, args.seed, batch)
+    f32_model, f32_pair_run = phase_train_f32_check(card, args.seed, batch)
+    measured.update(phase_config_kernels(card, args.seed))
+    config_launches = phase_config_request(card, args.seed, args.num_step,
+                                           vocos, req, bf16_out, f32_plain)
+    del vocos, req, bf16_out, f32_plain
+    config_train = phase_config_train(card, args.seed, batch, f32_model,
+                                      f32_pair_run)
 
-    launches = {"rel_pos_attention_weights": launches, **{
-        k: v for k, v in train_launches.items()
-        if k != "rel_pos_attention_weights"}}
+    # each kernel's launches in the run of the path it serves: the default
+    # request (phase 3), the kernel-configuration request (phase 9), the
+    # default training run (phase 6) and the kernel-configuration training
+    # run (phase 10)
+    launches = {
+        "rel_pos_attention_weights": launches,
+        "rel_pos_attention_weights_nonlin":
+            config_launches["rel_pos_attention_weights_nonlin"],
+        "attention_apply": config_launches["attention_apply"],
+        "rel_pos_attention_weights_train":
+            train_launches["rel_pos_attention_weights_train"],
+        "rel_pos_attention_weights_bwd":
+            train_launches["rel_pos_attention_weights_bwd"],
+        "depthwise_conv1d": config_launches["depthwise_conv1d"],
+        "depthwise_conv1d_bwd": config_train["depthwise_conv1d_bwd"],
+    }
     sources = {
         "rel_pos_attention_weights": (
             "zipvoice_torch/csrc/rel_pos_attention.cu",
             "zipvoice_tpu/ops/pallas_attention.py:103"),
+        "rel_pos_attention_weights_nonlin": (
+            "zipvoice_torch/csrc/rel_pos_attention.cu",
+            "zipvoice_tpu/ops/pallas_attention.py:240"),
+        "attention_apply": (
+            "zipvoice_torch/csrc/attention_apply.cu",
+            "zipvoice_tpu/ops/pallas_attention.py:363"),
         "rel_pos_attention_weights_train": (
             "zipvoice_torch/csrc/rel_pos_attention.cu",
             "zipvoice_tpu/ops/pallas_attention.py:423"),
         "rel_pos_attention_weights_bwd": (
             "zipvoice_torch/csrc/rel_pos_attention_bwd.cu",
             "zipvoice_tpu/ops/pallas_attention.py:519"),
+        "depthwise_conv1d": (
+            "zipvoice_torch/csrc/depthwise_conv.cu",
+            "zipvoice_tpu/ops/pallas_conv.py:26"),
+        "depthwise_conv1d_bwd": (
+            "zipvoice_torch/csrc/depthwise_conv.cu",
+            "zipvoice_tpu/ops/pallas_conv.py:41"),
     }
     kernels = [dict(
         name=name, route="cuda", source=src, replaces=tpu,
-        launches=launches[name], library_ms=None, **measured[name],
+        launches=launches[name], **{"library_ms": None, **measured[name]},
     ) for name, (src, tpu) in sources.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,12 +8,21 @@ shapes its path gives it, prints the bytes it must move (each input read
 once, each output written once) and its operations, and the bound: the
 larger of bytes over the HBM rate and operations over the bf16 tensor rate
 (H100 SXM data sheet, ``chip_smoke.HBM_BYTES_PER_S`` and
-``BF16_FLOP_PER_S``).  Pure arithmetic: it needs no card.  The ported
-kernels' rows are ``chip_smoke.py``'s own counts (``attention_traffic``,
-``bwd_traffic``), so the table and its runs cannot drift apart.
+``BF16_FLOP_PER_S``).  Pure arithmetic: it needs no card.  Every row is
+``chip_smoke.py``'s own count (``attention_traffic``, ``nonlin_traffic``,
+``apply_traffic``, ``bwd_traffic``, ``conv_traffic``,
+``conv_bwd_traffic``), so the table and its runs cannot drift apart.
 """
 
-from chip_smoke import attention_traffic, bound, bwd_traffic
+from chip_smoke import (
+    apply_traffic,
+    attention_traffic,
+    bound,
+    bwd_traffic,
+    conv_bwd_traffic,
+    conv_traffic,
+    nonlin_traffic,
+)
 
 BF16 = 2
 
@@ -26,12 +35,10 @@ def rows():
     wb, wf = attention_traffic(B, h, T, qd, pd)
     yield ("#1 _attn_weights_kernel", "B=16 T=1280 bf16", wb, wf,
            bound(wb, wf))
-    nb = wb + 2 * BF16 * B * T * hid
-    nf = wf + 2 * B * T * T * hid
+    nb, nf = nonlin_traffic(B, h, T, qd, pd, hid)
     yield ("#2 _attn_weights_nonlin_kernel", "B=16 T=1280 bf16, hid 384",
            nb, nf, bound(nb, nf))
-    ab = BF16 * (B * h * T * T + 2 * B * h * T * vd)
-    af = 2 * B * h * T * T * vd
+    ab, af = apply_traffic(B, h, T, vd)
     yield ("#3 _attn_apply_kernel", "B=16 T=1280 bf16, vd 12", ab, af,
            bound(ab, af))
     Bt = 8
@@ -41,12 +48,10 @@ def rows():
     bb, bf = bwd_traffic(Bt, h, T, qd, pd, BF16, penalty=False)
     yield ("#5 _attn_weights_bwd_kernel", "B=8 T=1280 bf16, penalty off",
            bb, bf, bound(bb, bf))
-    cb = BF16 * (2 * B * T * C + k * C + C)
-    cf = 2 * B * T * C * k
+    cb, cf = conv_traffic(B, T, C, k)
     yield ("#6 _dwconv_kernel", "B=16 T=1280 C=512 k=31 bf16", cb, cf,
            bound(cb, cf))
-    db = BF16 * 3 * Bt * T * C + 4 * (k * C + C) + BF16 * k * C
-    df = 4 * Bt * T * C * k + Bt * T * C
+    db, df = conv_bwd_traffic(Bt, T, C, k)
     yield ("#7 _dwconv_bwd_kernel", "B=8 T=1280 C=512 k=31 bf16", db, df,
            bound(db, df))
 

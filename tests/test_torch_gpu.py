@@ -9,19 +9,33 @@ directory's conftest, so that on a GPU machine without JAX they run with
 import pytest
 import torch
 
+from zipvoice_torch.kernels.depthwise_conv import (
+    depthwise_conv1d,
+    depthwise_conv1d_bwd,
+    depthwise_conv1d_bwd_ref,
+    depthwise_conv1d_ref,
+)
 from zipvoice_torch.kernels.rel_pos_attention import (
+    attention_apply,
+    attention_apply_ref,
     rel_pos_attention_weights,
     rel_pos_attention_weights_bwd,
     rel_pos_attention_weights_bwd_ref,
+    rel_pos_attention_weights_nonlin,
+    rel_pos_attention_weights_nonlin_ref,
     rel_pos_attention_weights_ref,
     rel_pos_attention_weights_train,
     rel_pos_attention_weights_train_ref,
 )
 from zipvoice_torch.models.zipformer import (
+    ConvolutionModule,
     RelPosAttentionWeights,
     TrainGenerators,
+    ZipformerEncoderLayer,
     compact_rel_pos_encoding,
     set_attention_kernel,
+    set_conv_kernel,
+    set_kernel_config,
 )
 
 
@@ -206,3 +220,221 @@ def test_bwd_cuda_tensor_never_takes_plain_version():
     with pytest.raises(ValueError):
         rel_pos_attention_weights_bwd(q, k, p, pe, w, w,
                                       torch.zeros((), device="cuda"))
+
+
+def _assert_conv_close(got, want, dtype):
+    """The conv kernels sum the same f32 products as the plain versions in
+    another order and round once: bf16 within one rounding of each value,
+    f32 within 2e-6 of the tensor's largest |value| (sums of up to 31
+    products)."""
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        bound = 2e-6 * max(1.0, want.abs().max().item())
+    else:
+        bound = 2.0 ** -7 * want.float().abs() + 1e-6
+    diff = (got.float() - want.float()).abs()
+    assert (diff <= bound).all(), diff.max().item()
+
+
+def _conv_inputs(B, T, C, k, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(B, T, C, generator=g, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(C, k, generator=g, device="cuda")).to(dtype)
+    b = (0.3 * torch.randn(C, generator=g, device="cuda")).to(dtype)
+    return v, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,C,k", [(3, 37, 40, 5), (4, 320, 512, 7),
+                                     (2, 700, 512, 31), (4, 128, 192, 9)])
+def test_depthwise_conv_kernel_matches_plain(dtype, B, T, C, k):
+    """Ragged T and C (no multiple of the 64-row, 64-channel tiles) and
+    the main path's kernel sizes."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    v, w, b = _conv_inputs(B, T, C, k, dtype, seed=T + k)
+    before = depthwise_conv1d.launches
+    got = depthwise_conv1d(v, w, b)
+    torch.cuda.synchronize()
+    assert depthwise_conv1d.launches == before + 1
+    _assert_conv_close(got, depthwise_conv1d_ref(v, w, b), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,C,k", [(3, 37, 40, 5), (8, 640, 512, 15),
+                                     (2, 700, 512, 31)])
+def test_depthwise_conv_bwd_kernel_matches_plain(dtype, B, T, C, k):
+    """dv, dw and db against the plain backward: dv element by element
+    as the forward; dw and db, sums over B x T products in f32 rounded to
+    the dtype, within 1e-4 of each tensor's largest |value| (bf16: one
+    rounding more)."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    v, w, _ = _conv_inputs(B, T, C, k, dtype, seed=T + k + 1)
+    g = torch.randn(B, T, C, device="cuda").to(dtype)
+    before = depthwise_conv1d_bwd.launches
+    dv, dw, db = depthwise_conv1d_bwd(v, g, w)
+    torch.cuda.synchronize()
+    assert depthwise_conv1d_bwd.launches == before + 1
+    want = depthwise_conv1d_bwd_ref(v, g, w)
+    _assert_conv_close(dv, want[0], dtype)
+    for got, ref in zip((dw, db), want[1:]):
+        assert got.dtype == dtype and got.shape == ref.shape
+        tol = 1e-4 * ref.float().abs().max().item()
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        assert ((got.float() - ref.float()).abs() <= tol).all()
+    # deterministic: a second run gives the same bits
+    again = depthwise_conv1d_bwd(v, g, w)
+    assert all(torch.equal(a, b) for a, b in zip((dv, dw, db), again))
+
+
+@pytest.mark.gpu
+def test_conv_module_trainable_kernel_matches_plain():
+    """ConvolutionModule in f32 with gradients recorded: the kernel pair
+    and F.conv1d give the same output and parameter gradients."""
+    dev = _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    mod = ConvolutionModule(64, 15).to(dev)
+    x = torch.randn(2, 300, 64, device=dev)
+    mask = torch.zeros(2, 300, dtype=torch.bool, device=dev)
+    mask[1, -40:] = True
+    runs = []
+    for on in (True, False):
+        set_conv_kernel(mod, on)
+        mod.zero_grad()
+        before = (depthwise_conv1d.launches, depthwise_conv1d_bwd.launches)
+        out = mod(x, mask)
+        out.square().sum().backward()
+        assert (depthwise_conv1d.launches - before[0],
+                depthwise_conv1d_bwd.launches - before[1]) == (on, on)
+        runs.append([out.detach()] + [p.grad.clone()
+                                      for p in mod.parameters()])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item(),
+                                   rtol=0)
+
+
+def _assert_sums_match(got, want, spread=None):
+    """na and w @ v.  bf16: one rounding, plus 2^-7 ``spread`` where the
+    sum's inputs were rounded by each side on its own (na sums weights
+    that may differ by one rounding: spread = w[:, 0] @ |nv|).  f32: both
+    sides sum T products in different orders, and the plain version's
+    cuBLAS sum alone strays 3-7e-6 from an f64 sum at |value| about 5, so
+    the bound is 2e-6 of max(1, the tensor's largest |value|)."""
+    assert got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        bound = 2e-6 * max(1.0, want.abs().max().item())
+    else:
+        bound = 2.0 ** -7 * want.float().abs() + 1e-6
+        if spread is not None:
+            bound = bound + 2.0 ** -7 * spread
+    assert (diff <= bound).all(), diff.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,qd,hid", [(37, 8, 48), (640, 32, 384),
+                                      (1029, 32, 144)])
+def test_nonlin_kernel_matches_plain(dtype, T, qd, hid):
+    """The nonlin build: the weights as the inference build gives them,
+    and na as ``_assert_sums_match`` holds it against the plain version,
+    which applies its own rounded weights in f32."""
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _inputs(4, 4, T, qd, 4, dtype, seed=T + 2)
+    nv = torch.randn(4, T, hid, device="cuda").to(dtype)
+    before = rel_pos_attention_weights_nonlin.launches
+    w, na = rel_pos_attention_weights_nonlin(*args, nv)
+    torch.cuda.synchronize()
+    assert rel_pos_attention_weights_nonlin.launches == before + 1
+    want_w, want_na = rel_pos_attention_weights_nonlin_ref(*args, nv)
+    _assert_matches(w, want_w)
+    assert torch.equal(w, rel_pos_attention_weights(*args))
+    _assert_sums_match(na, want_na,
+                       torch.matmul(want_w[:, 0].float(), nv.float().abs()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [37, 640, 1029])
+def test_apply_kernel_matches_plain(dtype, T):
+    """weights @ values, as ``_assert_sums_match`` holds them; T=37 and
+    T=1029 take the kernel's unaligned loop."""
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = rel_pos_attention_weights_ref(*_inputs(4, 4, T, 8, 4, dtype,
+                                               seed=T + 3))
+    v = torch.randn(4, 4, T, 12, device="cuda").to(dtype)
+    before = attention_apply.launches
+    got = attention_apply(w, v)
+    torch.cuda.synchronize()
+    assert attention_apply.launches == before + 1
+    _assert_sums_match(got, attention_apply_ref(w, v))
+
+
+@pytest.mark.gpu
+def test_layer_kernel_config_launches_and_matches_plain(monkeypatch):
+    """One f32 encoder layer at T=700 (above the gates) in the kernel
+    configuration: one fused launch, two application launches and two conv
+    launches per forward, no inference-weights launch, and the output of
+    the plain path."""
+    import zipvoice_torch.models.zipformer as zipformer
+
+    dev = _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    T = 700
+    layer = ZipformerEncoderLayer(64, 48, 4, 32, 4, 12, 96, 15).to(dev)
+    x = torch.randn(2, T, 64, device=dev)
+    mask = torch.zeros(2, T, dtype=torch.bool, device=dev)
+    mask[1, -100:] = True
+    pos = compact_rel_pos_encoding(T, 48, device=dev)
+    wrappers = (rel_pos_attention_weights, rel_pos_attention_weights_nonlin,
+                attention_apply, depthwise_conv1d)
+    outs = []
+    for on in (True, False):
+        set_kernel_config(layer, on)
+        if not on:
+            set_attention_kernel(layer, False)
+        before = [f.launches for f in wrappers]
+        with torch.no_grad():
+            outs.append(layer(x, pos, None, mask))
+        counts = [f.launches - n for f, n in zip(wrappers, before)]
+        assert counts == ([0, 1, 2, 2] if on else [0, 0, 0, 0]), counts
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=0)
+    assert zipformer.MIN_APPLY_SEQ_LEN <= T and zipformer.MIN_SEQ_LEN <= T
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_are_not_built_for():
+    """An even or unbuilt kernel size, an unbuilt hid, a vd other than 12
+    and an unbuilt qd raise on the card; none falls back to the plain
+    version."""
+    _cuda()
+    v, w, b = _conv_inputs(2, 64, 32, 7, torch.float32, seed=0)
+    for k in (4, 11):
+        with pytest.raises(ValueError):
+            depthwise_conv1d(v, torch.zeros(32, k, device="cuda"), b)
+        with pytest.raises(ValueError):
+            depthwise_conv1d_bwd(v, v, torch.zeros(32, k, device="cuda"))
+    with pytest.raises(ValueError):
+        depthwise_conv1d(v.half(), w.half(), b.half())
+    args = _inputs(3, 4, 64, 8, 4, torch.float32, seed=0)
+    for hid in (47, 96, 386):
+        with pytest.raises(ValueError):
+            rel_pos_attention_weights_nonlin(
+                *args, torch.zeros(3, 64, hid, device="cuda"))
+    with pytest.raises(ValueError):
+        rel_pos_attention_weights_nonlin(
+            *_inputs(3, 4, 64, 16, 4, torch.float32, seed=0),
+            torch.zeros(3, 64, 48, device="cuda"))
+    wts = rel_pos_attention_weights_ref(*args)
+    with pytest.raises(ValueError):
+        attention_apply(wts, torch.zeros(3, 4, 64, 16, device="cuda"))

@@ -58,8 +58,9 @@ def test_vocos_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every zipvoice_torch module, the training step among them,
-    leaves jax, the JAX package and tools/ out of sys.modules."""
+    """Importing every zipvoice_torch module, the training step and every
+    kernel wrapper among them, leaves jax, the JAX package and tools/ out
+    of sys.modules."""
     code = (
         "import importlib, pkgutil, sys, zipvoice_torch\n"
         "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
@@ -71,7 +72,8 @@ def test_port_imports_no_jax():
         "need = {'zipvoice_torch.train.train_step',"
         " 'zipvoice_torch.train.optim', 'zipvoice_torch.ops.schedule',"
         " 'zipvoice_torch.ops.scaling',"
-        " 'zipvoice_torch.kernels.rel_pos_attention'}\n"
+        " 'zipvoice_torch.kernels.rel_pos_attention',"
+        " 'zipvoice_torch.kernels.depthwise_conv'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"

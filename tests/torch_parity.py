@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from zipvoice_torch.models.zipformer import set_kernel_config
 from zipvoice_torch.models.zipvoice import build_zipvoice
 from zipvoice_torch.utils.convert import state_dict_from_jax_params
 
@@ -130,10 +131,12 @@ def sample_inputs(feat_dim=TINY["feat_dim"], vocab=TINY["vocab_size"],
     )
 
 
-def assert_sample_matches(distill, guidance_scale):
-    """``ZipVoice.sample`` of the port vs the JAX package's on
-    ``sample_inputs``: the same padding mask, features within 5e-3."""
+def assert_sample_matches(distill, guidance_scale, kernel_config=False):
+    """``ZipVoice.sample`` of the port (in the kernel configuration with
+    ``kernel_config``) vs the JAX package's on ``sample_inputs``: the same
+    padding mask, features within 5e-3."""
     jmodel, params, tmodel = model_pair(distill=distill, seed=int(distill))
+    set_kernel_config(tmodel, kernel_config)
     x = sample_inputs()
     kw = dict(num_step=3, guidance_scale=guidance_scale, t_shift=0.5)
     x1_j, pm_j = jax_method(jmodel, "sample", **kw)(params, to_jax(x))

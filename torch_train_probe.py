@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one full-width training step goes in the PyTorch port.
 
-    python3 torch_train_probe.py [--rounds 4] [--seed 0]
+    python3 torch_train_probe.py [--rounds 4] [--seed 0] [--kernel-config]
 
 Builds the training workload of ``zipvoice_torch/train/workload.py`` (the
 ZipVoice base, f32 parameters, bf16 compute, ScaledAdam + Eden with
 clipping, schedules and scheduled dropout on, B=8, S=128, T=1280) and:
 
 1. times steps with the trainable attention kernels and with the plain
-   skew path, in the order plain, kernel, kernel, plain in even rounds and
+   skew path (with ``--kernel-config``: with the kernel configuration,
+   the conv pair beside the attention pair, and with the default one), in
+   the order plain, kernel, kernel, plain in even rounds and
    kernel, plain, plain, kernel in odd ones: ScaledAdam's size update
    (every 4th step, a few hundred extra launches) then falls as often on
    either path over an even number of rounds;
@@ -29,12 +31,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # device kernel names of the trainable attention pair (both CUDA sources)
 ATTENTION_KERNELS = ("rel_pos_weights_kernel", "bwd_rows_kernel",
                      "bwd_keys_kernel", "bwd_fold_kernel")
+# the port's depthwise-conv pair and PyTorch's own depthwise kernels
+CONV_KERNELS = ("dwconv_", "depthwise", "conv_depthwise")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernel-config", action="store_true",
+                    help="A/B the kernel configuration against the default")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -45,7 +51,10 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     from zipvoice_torch.infer.workload import card_identity
-    from zipvoice_torch.models.zipformer import set_attention_kernel
+    from zipvoice_torch.models.zipformer import (
+        set_attention_kernel,
+        set_conv_kernel,
+    )
     from zipvoice_torch.ops.schedule import adjusted_batch_count
     from zipvoice_torch.train.train_step import draw_inputs
     from zipvoice_torch.train.workload import build_trainer, train_batch
@@ -55,8 +64,14 @@ def main(argv=None) -> int:
     batch = train_batch(args.seed)
     frames = int(batch["features_lens"].sum())
 
+    def configure(on):
+        if args.kernel_config:
+            set_conv_kernel(model, on)  # the attention pair stays on
+        else:
+            set_attention_kernel(model, on)
+
     def timed(on):
-        set_attention_kernel(model, on)
+        configure(on)
         torch.cuda.synchronize()
         t = time.perf_counter()
         step(batch)
@@ -70,14 +85,16 @@ def main(argv=None) -> int:
         for on in ((False, True, True, False) if r % 2 == 0
                    else (True, False, False, True)):
             walls[on].append(timed(on))
-    for on, name in ((False, "plain skew path"), (True, "kernel pair")):
+    names = (("default configuration", "kernel configuration")
+             if args.kernel_config else ("plain skew path", "kernel pair"))
+    for on, name in zip((False, True), names):
         med = float(np.median(walls[on]))
         print(f"B=8 T=1280 training step, {name}: walls "
               f"{', '.join(f'{x:.4f}' for x in walls[on])} s, median "
               f"{med:.4f} s, {frames / med:.0f} frames/s [{card}]",
               flush=True)
 
-    set_attention_kernel(model, True)
+    configure(True)
     gens = step.gens
     parts = {"loss": [], "backward": [], "optimizer": []}
     for _ in range(args.rounds):
@@ -98,7 +115,7 @@ def main(argv=None) -> int:
         t3 = time.perf_counter()
         for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[k].append(v)
-    print("kernel step split (median of rounds): " + ", ".join(
+    print(f"{names[1]} step split (median of rounds): " + ", ".join(
         f"{k} {float(np.median(v)):.4f} s" for k, v in parts.items())
         + f" [{card}]", flush=True)
 
@@ -124,12 +141,11 @@ def main(argv=None) -> int:
                  if any(w in e.key for w in words))
         return f"{us / 1e3:.2f} ms ({100 * us / max(total_us, 1):.1f}%)"
 
-    print(f"profiled kernel step: wall {wall:.4f} s, device busy "
+    print(f"profiled {names[1]} step: wall {wall:.4f} s, device busy "
           f"{total_us / 1e6:.4f} s ({100 * total_us / 1e6 / wall:.1f}% of "
           f"this profiled wall), {calls} device kernels; attention pair "
-          f"{share(ATTENTION_KERNELS)}, "
-          f"depthwise conv {share(('depthwise', 'conv_depthwise'))} "
-          f"[{card}]", flush=True)
+          f"{share(ATTENTION_KERNELS)}, depthwise conv "
+          f"{share(CONV_KERNELS)} [{card}]", flush=True)
     print("top device kernels (self device time):")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "

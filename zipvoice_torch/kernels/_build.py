@@ -3,7 +3,9 @@
 Each ``zipvoice_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository
 root (listed in ``.gitignore``), once per source content; the library is then
-loaded with ``ctypes``.  Nothing here runs at import time.
+loaded with ``ctypes``.  Nothing here runs at import time.  The wrappers'
+shared conventions live here too: the dtype codes of the C entry points and
+the checks around a launch.
 """
 
 import ctypes
@@ -13,6 +15,8 @@ import os
 import shutil
 import subprocess
 from typing import Dict, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -87,6 +91,23 @@ def build(names: Sequence[str]) -> Dict[str, str]:
             with open(log_path) as f:
                 reports[name] = f.read()
     return reports
+
+
+# the dtype argument of every C entry point in csrc/
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require_cuda(t: torch.Tensor) -> None:
+    """A wrapper's guard: a tensor that is not on the CPU must be on CUDA."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` after the launch)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 @functools.cache

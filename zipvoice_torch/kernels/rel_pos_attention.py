@@ -1,7 +1,7 @@
-"""Relative-position attention weights: the CUDA kernels and their plain
-versions.
+"""Relative-position attention weights and their application: the CUDA
+kernels and their plain versions.
 
-Three kernels, each behind a wrapper that launches it for CUDA tensors and
+Five kernels, each behind a wrapper that launches it for CUDA tensors and
 takes its plain PyTorch version (``*_ref``) only for CPU tensors, and that
 counts its launches in ``<wrapper>.launches``:
 
@@ -11,11 +11,18 @@ counts its launches in ``<wrapper>.launches``:
   the same weights plus the largest |pre-mask score|, which gates the score
   penalty in the backward;
 - ``rel_pos_attention_weights_bwd`` replaces ``_attn_weights_bwd_kernel``:
-  dq, dk, dp and dpe in f32.
+  dq, dk, dp and dpe in f32;
+- ``rel_pos_attention_weights_nonlin`` replaces
+  ``_attn_weights_nonlin_kernel``: the inference weights plus
+  NonlinAttention's application of head 0's weights, in one pass;
+- ``attention_apply`` replaces ``_attn_apply_kernel``: SelfAttention's
+  weights @ values.
 
-The first two are builds of ``zipvoice_torch/csrc/rel_pos_attention.cu``,
-the third is ``zipvoice_torch/csrc/rel_pos_attention_bwd.cu``; each source's
-header says what bounds it on an H100 and how its design answers that.
+The first two and the fourth are builds of
+``zipvoice_torch/csrc/rel_pos_attention.cu``, the third is
+``zipvoice_torch/csrc/rel_pos_attention_bwd.cu`` and the fifth
+``zipvoice_torch/csrc/attention_apply.cu``; each source's header says what
+bounds it on an H100 and how its design answers that.
 ``rel_pos_attention_weights_trainable`` joins the training pair in a
 ``torch.autograd.Function``.
 """
@@ -26,14 +33,25 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from zipvoice_torch.kernels._build import load_library
+from zipvoice_torch.kernels._build import (
+    DTYPE_CODES,
+    load_library,
+    raise_on,
+    require_cuda,
+)
 
 _SOURCE = "rel_pos_attention"
 _BWD_SOURCE = "rel_pos_attention_bwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_APPLY_SOURCE = "attention_apply"
 # query head dims the kernel is built for (rel_pos_attention.cu, dispatch_qd)
 _HEAD_DIMS = (8, 32)
 _POS_HEAD_DIM = 4
+# NonlinAttention hidden widths the nonlin build is built for
+# (rel_pos_attention.cu, zv_rel_pos_attention_weights_nonlin): the
+# fm_decoder's 384, the text encoder's 144, the tests' 48
+_HIDDEN_DIMS = (48, 144, 384)
+# value head dim the application kernel is built for (attention_apply.cu)
+_VALUE_HEAD_DIM = 12
 # shared memory one block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
 
@@ -94,6 +112,21 @@ def rel_pos_attention_weights_train_ref(q, k, p, pe, key_padding_mask):
     return torch.softmax(scores, dim=-1).to(q.dtype), smax
 
 
+def rel_pos_attention_weights_nonlin_ref(q, k, p, pe, key_padding_mask, nv):
+    """Plain version of the nonlin build: (weights as
+    ``rel_pos_attention_weights_ref`` gives them, na (B, T, hid) in q's
+    dtype), na = weights[:, 0] @ nv with the weights rounded to q's dtype
+    first and the product summed in f32."""
+    w = rel_pos_attention_weights_ref(q, k, p, pe, key_padding_mask)
+    return w, torch.matmul(w[:, 0].float(), nv.float()).to(q.dtype)
+
+
+def attention_apply_ref(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the application kernel: w (B, h, T, T) @ v
+    (B, h, T, vd), summed in f32, in v's dtype."""
+    return torch.matmul(w.float(), v.float()).to(v.dtype)
+
+
 def rel_pos_attention_weights_bwd_ref(q, k, p, pe, g, w, coin_live):
     """Plain version of the backward, in f32: the softmax VJP, the score
     penalty gated by ``coin_live`` (an f32 0/1 device scalar) on the
@@ -132,13 +165,33 @@ def _kernel():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     train.restype = ctypes.c_int
+    nonlin = lib.zv_rel_pos_attention_weights_nonlin
+    nonlin.argtypes = [ctypes.c_int, ctypes.c_int] + ptrs * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    nonlin.restype = ctypes.c_int
     smem = lib.zv_rel_pos_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
     rows = lib.zv_rel_pos_attention_rows_per_block
     rows.argtypes = []
     rows.restype = ctypes.c_int
-    return fn, train, smem, rows()
+    return fn, train, nonlin, smem, rows()
+
+
+@functools.cache
+def _apply_kernel():
+    lib = load_library(_APPLY_SOURCE)
+    fn = lib.zv_attention_apply
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    smem = lib.zv_attention_apply_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_longlong
+    return fn, smem
 
 
 @functools.cache
@@ -158,11 +211,12 @@ def _bwd_kernel():
     return fn, scratch, smem
 
 
-def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None):
+def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None, nv=None):
     if q.dim() != 4:
         raise ValueError(f"q must be (B, h, T, qd), got {tuple(q.shape)}")
     B, h, T, qd = q.shape
     pd = p.shape[-1]
+    hid = nv.shape[-1] if nv is not None else 0
     shapes = {
         "k": (k, (B, h, T, qd)),
         "p": (p, (B, h, T, pd)),
@@ -170,6 +224,7 @@ def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None):
         "key_padding_mask": (key_padding_mask, (B, T)),
         "g": (g, (B, h, T, T)),
         "w": (w, (B, h, T, T)),
+        "nv": (nv, (B, T, hid)),
     }
     shapes = {n: v for n, v in shapes.items() if v[0] is not None}
     for name, (t, want) in shapes.items():
@@ -182,7 +237,7 @@ def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None):
             raise ValueError(f"{name} must be contiguous")
         if t is not key_padding_mask and t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype}")
     if key_padding_mask is not None and key_padding_mask.dtype != torch.bool:
         raise ValueError("key_padding_mask must be bool")
@@ -191,21 +246,14 @@ def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None):
             f"kernel takes qd in {_HEAD_DIMS} and pd={_POS_HEAD_DIM}, "
             f"got qd={qd}, pd={pd}"
         )
+    if nv is not None and hid not in _HIDDEN_DIMS:
+        raise ValueError(f"the nonlin build takes hid in {_HIDDEN_DIMS}, "
+                         f"got {hid}")
     if not 0 < B * h <= 65535 or T <= 0:
         raise ValueError(f"unsupported sizes B*h={B * h}, T={T}")
-    for name, t in (("q", q), ("k", k)):
-        if t.data_ptr() % 16:
+    for name, t in (("q", q), ("k", k), ("nv", nv)):
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def _require_cuda(q):
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-
-
-def _raise_on(err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def rel_pos_attention_weights(
@@ -220,21 +268,21 @@ def rel_pos_attention_weights(
     the hand-written kernel; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return rel_pos_attention_weights_ref(q, k, p, pe, key_padding_mask)
-    _require_cuda(q)
+    require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
     B, h, T, qd = q.shape
-    fn, _, smem_bytes, _ = _kernel()
-    if smem_bytes(qd, T) > _MAX_SMEM:
+    fn, _, _, smem_bytes, _ = _kernel()
+    if smem_bytes(qd, T, 0, 0) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(
-            _DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
+            DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
             p.data_ptr(), pe.data_ptr(), key_padding_mask.data_ptr(),
             out.data_ptr(), B, h, T,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, "rel_pos_attention_weights")
+    raise_on(err, "rel_pos_attention_weights")
     rel_pos_attention_weights.launches += 1
     return out
 
@@ -250,28 +298,102 @@ def rel_pos_attention_weights_train(q, k, p, pe, key_padding_mask):
     if q.device.type == "cpu":
         return rel_pos_attention_weights_train_ref(q, k, p, pe,
                                                    key_padding_mask)
-    _require_cuda(q)
+    require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
     B, h, T, qd = q.shape
-    _, fn, smem_bytes, rows = _kernel()
-    if smem_bytes(qd, T) > _MAX_SMEM:
+    _, fn, _, smem_bytes, rows = _kernel()
+    if smem_bytes(qd, T, 0, 0) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     block_max = torch.empty((B * h, (T + rows - 1) // rows),
                             dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = fn(
-            _DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
+            DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
             p.data_ptr(), pe.data_ptr(), key_padding_mask.data_ptr(),
             out.data_ptr(), block_max.data_ptr(), B, h, T,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, "rel_pos_attention_weights_train")
+    raise_on(err, "rel_pos_attention_weights_train")
     rel_pos_attention_weights_train.launches += 1
     return out, block_max.amax()
 
 
 rel_pos_attention_weights_train.launches = 0
+
+
+def rel_pos_attention_weights_nonlin(q, k, p, pe, key_padding_mask, nv):
+    """The weights (B, h, T, T) as ``rel_pos_attention_weights`` gives
+    them, and na = weights[:, 0] @ nv (B, T, hid), both in q's dtype; nv is
+    NonlinAttention's gated values (B, T, hid) in q's dtype.  CUDA tensors
+    run the kernel's nonlin build, which computes both in one pass; CPU
+    tensors run the plain version."""
+    if q.device.type == "cpu":
+        return rel_pos_attention_weights_nonlin_ref(q, k, p, pe,
+                                                    key_padding_mask, nv)
+    require_cuda(q)
+    _check(q, k, p, pe, key_padding_mask, nv=nv)
+    B, h, T, qd = q.shape
+    hid = nv.shape[-1]
+    _, _, fn, smem_bytes, _ = _kernel()
+    if smem_bytes(qd, T, hid, q.element_size()) > _MAX_SMEM:
+        raise ValueError(f"T={T} needs more shared memory than a block has")
+    out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
+    na = torch.empty((B, T, hid), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(
+            DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
+            p.data_ptr(), pe.data_ptr(), key_padding_mask.data_ptr(),
+            out.data_ptr(), nv.data_ptr(), na.data_ptr(), hid, B, h, T,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    raise_on(err, "rel_pos_attention_weights_nonlin")
+    rel_pos_attention_weights_nonlin.launches += 1
+    return out, na
+
+
+rel_pos_attention_weights_nonlin.launches = 0
+
+
+def attention_apply(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w (B, h, T, T) @ v (B, h, T, vd), summed in f32, in v's dtype.
+    CUDA tensors (f32 or bf16, contiguous, one dtype, vd = 12) run the
+    kernel (``csrc/attention_apply.cu``); CPU tensors the plain version."""
+    if w.device.type == "cpu":
+        return attention_apply_ref(w, v)
+    require_cuda(w)
+    if w.dim() != 4 or w.shape[-1] != w.shape[-2]:
+        raise ValueError(f"w must be (B, h, T, T), got {tuple(w.shape)}")
+    B, h, T, _ = w.shape
+    vd = v.shape[-1]
+    if tuple(v.shape) != (B, h, T, vd):
+        raise ValueError(f"v has shape {tuple(v.shape)}, want (B, h, T, vd) "
+                         f"= {(B, h, T, vd)}")
+    if v.device != w.device or v.dtype != w.dtype:
+        raise ValueError(f"v is {v.dtype} on {v.device}, w {w.dtype} on "
+                         f"{w.device}")
+    if w.dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {w.dtype}")
+    if not (w.is_contiguous() and v.is_contiguous()):
+        raise ValueError("w and v must be contiguous")
+    if vd != _VALUE_HEAD_DIM:
+        raise ValueError(f"the kernel takes vd={_VALUE_HEAD_DIM}, got {vd}")
+    if not 0 < B * h <= 65535 or w.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"unsupported B*h={B * h} or unaligned w or v")
+    fn, smem_bytes = _apply_kernel()
+    if smem_bytes(vd, T) > _MAX_SMEM:
+        raise ValueError(f"T={T} needs more shared memory than a block has")
+    out = torch.empty((B, h, T, vd), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(w.device):
+        err = fn(DTYPE_CODES[w.dtype], vd, w.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, h, T,
+                 torch.cuda.current_stream(w.device).cuda_stream)
+    raise_on(err, "attention_apply")
+    attention_apply.launches += 1
+    return out
+
+
+attention_apply.launches = 0
 
 
 def rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin_live):
@@ -283,7 +405,7 @@ def rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin_live):
     if q.device.type == "cpu":
         return rel_pos_attention_weights_bwd_ref(q, k, p, pe, g, w,
                                                  coin_live)
-    _require_cuda(q)
+    require_cuda(q)
     _check(q, k, p, pe, g=g, w=w)
     if (coin_live.device != q.device or coin_live.dtype != torch.float32
             or coin_live.numel() != 1):
@@ -301,13 +423,13 @@ def rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin_live):
     scratch = torch.empty((scratch_floats(B, h, T),), **f32)
     with torch.cuda.device(q.device):
         err = fn(
-            _DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
+            DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
             p.data_ptr(), pe.data_ptr(), g.data_ptr(), w.data_ptr(),
             coin_live.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dp.data_ptr(), dpe.data_ptr(), scratch.data_ptr(), B, h, T,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, "rel_pos_attention_weights_bwd")
+    raise_on(err, "rel_pos_attention_weights_bwd")
     rel_pos_attention_weights_bwd.launches += 1
     return dq, dk, dp, dpe
 

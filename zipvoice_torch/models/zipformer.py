@@ -32,10 +32,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from zipvoice_torch.kernels.depthwise_conv import (
+    depthwise_conv1d,
+    depthwise_conv1d_trainable,
+)
 from zipvoice_torch.kernels.rel_pos_attention import (
     SCORE_LIMIT,
     SCORE_PENALTY,
+    attention_apply,
     rel_pos_attention_weights,
+    rel_pos_attention_weights_nonlin,
     rel_pos_attention_weights_trainable,
 )
 from zipvoice_torch.ops import schedule as sched
@@ -52,8 +58,13 @@ from zipvoice_torch.ops.scaling import (
 # Shortest sequence that takes the attention-weights kernels (inference and
 # the training pair).  640 is the JAX package's TPU threshold
 # (zipvoice_tpu/ops/pallas_attention.py:50); it is a provisional default
-# here, not yet measured on the H100.
+# here, not yet measured on the H100.  The fused weights + NonlinAttention
+# kernel takes the same gate.
 MIN_SEQ_LEN = 640
+# Shortest sequence whose SelfAttention takes the application kernel, when it
+# is switched on.  640 is the JAX package's TPU value
+# (zipvoice_tpu/ops/pallas_attention.py:72); provisional as MIN_SEQ_LEN is.
+MIN_APPLY_SEQ_LEN = 640
 
 
 class TrainGenerators:
@@ -144,14 +155,45 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-def set_attention_kernel(module: nn.Module, enabled: bool) -> nn.Module:
-    """Switch the attention-weights kernels on or off in every
-    RelPosAttentionWeights under ``module`` (on by default; off, every
-    level takes the plain skew path)."""
+def set_attention_kernel(module: nn.Module, enabled: bool,
+                         fuse_nonlin: bool = False,
+                         apply: bool = False) -> nn.Module:
+    """Switch the attention kernels under ``module``: the weights kernels
+    of every RelPosAttentionWeights (on by default; off, every level takes
+    the plain skew path) and, with them, two inference-only kernels that
+    are off by default as in the JAX package: ``fuse_nonlin`` computes the
+    weights and NonlinAttention's application of head 0's weights in one
+    kernel (its ``FUSE_NONLIN``), ``apply`` runs SelfAttention's weights @
+    values in a kernel (its ``APPLY_KERNEL``)."""
     for m in module.modules():
         if isinstance(m, RelPosAttentionWeights):
             m.use_kernel = enabled
+        elif isinstance(m, ZipformerEncoderLayer):
+            m.fuse_nonlin = enabled and fuse_nonlin
+        elif isinstance(m, SelfAttention):
+            m.use_kernel = enabled and apply
     return module
+
+
+def set_conv_kernel(module: nn.Module, enabled: bool) -> nn.Module:
+    """Switch the depthwise-conv kernels on or off in every
+    ConvolutionModule under ``module`` (off by default, as the JAX
+    package's ``use_pallas_conv``): the forward kernel in inference, the
+    forward and backward pair where gradients are recorded."""
+    for m in module.modules():
+        if isinstance(m, ConvolutionModule):
+            m.use_kernel = enabled
+    return module
+
+
+def set_kernel_config(module: nn.Module, enabled: bool = True) -> nn.Module:
+    """Put ``module`` in the kernel configuration (every kernel switch on:
+    the JAX package with ``use_pallas_attention=True``,
+    ``use_pallas_conv=True``, ``ZIPVOICE_PALLAS_FUSE_NONLIN=1`` and
+    ``ZIPVOICE_PALLAS_APPLY=1``), or back to the default configuration
+    (only the attention-weights kernels on)."""
+    set_attention_kernel(module, True, fuse_nonlin=enabled, apply=enabled)
+    return set_conv_kernel(module, enabled)
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype,
@@ -277,7 +319,11 @@ class RelPosAttentionWeights(nn.Module):
                                  bias=False, initial_scale=0.05)
 
     def forward(self, x, pos_emb, key_padding_mask=None, train: bool = False,
-                batch_count=None, gens: Optional[TrainGenerators] = None):
+                batch_count=None, gens: Optional[TrainGenerators] = None,
+                return_projections: bool = False):
+        """The weights, or with ``return_projections`` (inference only) the
+        kernels' inputs (q, k, p (B, h, T, d), pe (h, 2T-1, pd), key mask
+        (B, T)) for the layer's fused path to compute them."""
         h, qd, pd = self.num_heads, self.query_head_dim, self.pos_head_dim
         B, T, _ = x.shape
         proj = self.in_proj(x)
@@ -302,7 +348,7 @@ class RelPosAttentionWeights(nn.Module):
             use_pos = (_rand_uniform(gens, ())
                        >= sched.POS_EMB_SKIP(batch_count))
 
-        if self.use_kernel and T >= MIN_SEQ_LEN:
+        if return_projections or (self.use_kernel and T >= MIN_SEQ_LEN):
             if key_padding_mask is None:
                 key_padding_mask = torch.zeros(
                     (B, T), dtype=torch.bool, device=x.device
@@ -316,6 +362,10 @@ class RelPosAttentionWeights(nn.Module):
                 pe.transpose(0, 1).contiguous(),
                 key_padding_mask.contiguous(),
             )
+            if return_projections:
+                if train:
+                    raise ValueError("the fused path is inference only")
+                return args
             if not train:
                 return rel_pos_attention_weights(*args)
             # the coin the plain path's score penalty draws; the backward
@@ -362,6 +412,9 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.value_head_dim = value_head_dim
+        # the application kernel, in inference at T >= MIN_APPLY_SEQ_LEN
+        # (set_attention_kernel(..., apply=True))
+        self.use_kernel = False
         self.in_proj = Linear(embed_dim, num_heads * value_head_dim)
         self.out_proj = Linear(num_heads * value_head_dim, embed_dim,
                                initial_scale=0.05)
@@ -371,7 +424,10 @@ class SelfAttention(nn.Module):
         B, T, _ = x.shape
         h, vd = self.num_heads, self.value_head_dim
         v = self.in_proj(x).reshape(B, T, h, vd).transpose(1, 2)
-        out = torch.matmul(attn_weights, v)
+        if self.use_kernel and not train and T >= MIN_APPLY_SEQ_LEN:
+            out = attention_apply(attn_weights, v.contiguous())
+        else:
+            out = torch.matmul(attn_weights, v)
         out = self.out_proj(out.transpose(1, 2).reshape(B, T, h * vd))
         if train:
             out = _stochastic(
@@ -392,7 +448,12 @@ class NonlinAttention(nn.Module):
         self.out_proj = Linear(hidden_channels, channels, initial_scale=0.05)
 
     def forward(self, x, attn_weights_head0, train: bool = False,
-                batch_count=None, gens: Optional[TrainGenerators] = None):
+                batch_count=None, gens: Optional[TrainGenerators] = None,
+                apply_fn=None):
+        """``attn_weights_head0`` (B, T, T), or None with ``apply_fn`` set:
+        then ``apply_fn(v)`` applies the weights to the gated values (the
+        layer's fused path, which computes the weights and this product in
+        one kernel)."""
         s, v, y = self.in_proj(x).chunk(3, dim=-1)
         bc = batch_count
         if train:
@@ -410,7 +471,10 @@ class NonlinAttention(nn.Module):
                 gens, 0.15,
                 lambda t: whiten(t, 1, sched.WHITEN_NONLIN(bc), 0.01), v,
             )
-        v = torch.matmul(attn_weights_head0, v)
+        if apply_fn is not None:
+            v = apply_fn(v)
+        else:
+            v = torch.matmul(attn_weights_head0, v)
         v = self.out_proj(v * y)
         if train:
             v = _stochastic(
@@ -448,10 +512,14 @@ class FeedforwardModule(nn.Module):
 
 
 class ConvolutionModule(nn.Module):
-    """Sigmoid-GLU -> depthwise conv1d over time -> SwooshR -> Linear."""
+    """Sigmoid-GLU -> depthwise conv1d over time -> SwooshR -> Linear.  With
+    ``use_kernel`` (``set_conv_kernel``) the conv runs in the CUDA kernel
+    (``kernels/depthwise_conv.py``), and where gradients are recorded in
+    its forward/backward pair."""
 
     def __init__(self, channels: int, kernel_size: int):
         super().__init__()
+        self.use_kernel = False
         self.in_proj = Linear(channels, 2 * channels)
         self.depthwise_conv = nn.Conv1d(
             channels, channels, kernel_size, padding=kernel_size // 2,
@@ -480,10 +548,16 @@ class ConvolutionModule(nn.Module):
         w, b = conv.weight, conv.bias
         if conv.compute_dtype is not None:
             w, b = w.to(conv.compute_dtype), b.to(conv.compute_dtype)
-        v = F.conv1d(
-            v.transpose(1, 2).to(w.dtype), w, b,
-            padding=conv.padding, groups=conv.groups,
-        ).transpose(1, 2)
+        if self.use_kernel:
+            conv_fn = (depthwise_conv1d_trainable if torch.is_grad_enabled()
+                       else depthwise_conv1d)
+            v = conv_fn(v.to(w.dtype).contiguous(),
+                        w.view(w.shape[0], w.shape[2]), b)
+        else:
+            v = F.conv1d(
+                v.transpose(1, 2).to(w.dtype), w, b,
+                padding=conv.padding, groups=conv.groups,
+            ).transpose(1, 2)
         if train:
             v = _stochastic(
                 gens, sched.BALANCER_PROB(bc),
@@ -510,6 +584,10 @@ class ZipformerEncoderLayer(nn.Module):
                  bypass_skip_rate: Optional[sched.ScheduledFloat] = None):
         super().__init__()
         d = embed_dim
+        # inference: the weights and NonlinAttention's application of head
+        # 0's weights in one kernel at T >= MIN_SEQ_LEN
+        # (set_attention_kernel(..., fuse_nonlin=True))
+        self.fuse_nonlin = False
         self.self_attn_weights = RelPosAttentionWeights(
             d, pos_dim, num_heads, query_head_dim, pos_head_dim
         )
@@ -537,8 +615,18 @@ class ZipformerEncoderLayer(nn.Module):
         scheds_on = train and batch_count is not None
         bc = batch_count if train else None
 
-        attn_weights = self.self_attn_weights(src, pos_emb, key_padding_mask,
-                                              **kw)
+        # the fused path defers the weights until NonlinAttention's gated
+        # values exist, so that one kernel computes both
+        fused = (not train and self.fuse_nonlin
+                 and src.shape[1] >= MIN_SEQ_LEN)
+        if fused:
+            projections = self.self_attn_weights(
+                src, pos_emb, key_padding_mask, return_projections=True
+            )
+            attn_weights = None
+        else:
+            attn_weights = self.self_attn_weights(src, pos_emb,
+                                                  key_padding_mask, **kw)
         if time_emb is not None:
             src = src + time_emb
         src = src + self.feed_forward1(src, dropout_rate=dropout_rate, **kw)
@@ -551,14 +639,27 @@ class ZipformerEncoderLayer(nn.Module):
                 gens, B, sched.ATTENTION_SKIP(batch_count), src.dtype,
                 src.device,
             )
-        # head-0 weights for NonlinAttention; under the scheduled
-        # const-attention coin, a uniform average over the kept positions
-        sel_weights = attn_weights[:, 0]
-        if scheds_on and (_rand_uniform(gens, ())
-                          < sched.CONST_ATTENTION(batch_count)):
-            nonzero = (sel_weights > 0.0).to(sel_weights.dtype)
-            sel_weights = nonzero / nonzero.sum(dim=-1, keepdim=True)
-        na = self.nonlin_attention(src, sel_weights, **kw)
+        if fused:
+            weights = []
+
+            def apply_head0(nv):
+                w, na = rel_pos_attention_weights_nonlin(*projections,
+                                                         nv.contiguous())
+                weights.append(w)
+                return na
+
+            na = self.nonlin_attention(src, None, apply_fn=apply_head0)
+            (attn_weights,) = weights
+        else:
+            # head-0 weights for NonlinAttention; under the scheduled
+            # const-attention coin, a uniform average over the kept
+            # positions
+            sel_weights = attn_weights[:, 0]
+            if scheds_on and (_rand_uniform(gens, ())
+                              < sched.CONST_ATTENTION(batch_count)):
+                nonzero = (sel_weights > 0.0).to(sel_weights.dtype)
+                sel_weights = nonzero / nonzero.sum(dim=-1, keepdim=True)
+            na = self.nonlin_attention(src, sel_weights, **kw)
         if train:
             na = _balance(gens, na, 0.05, 0.3, 0.7,
                           sched.BALANCER_NA_MIN_ABS(bc), 100.0, 0.04)

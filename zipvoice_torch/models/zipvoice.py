@@ -24,6 +24,7 @@ from zipvoice_torch.models.zipformer import (
     TrainGenerators,
     TTSZipformer,
     set_compute_dtype,
+    set_kernel_config,
 )
 from zipvoice_torch.utils.device import resolve_device
 
@@ -241,12 +242,15 @@ def strip_prompt(x1: torch.Tensor, padding_mask: torch.Tensor,
 
 def build_zipvoice(distill: bool = False, device="cuda",
                    dtype: torch.dtype = torch.float32, seed: int = 0,
-                   train: bool = False, **config) -> ZipVoice:
+                   train: bool = False, kernel_config: bool = False,
+                   **config) -> ZipVoice:
     """A ZipVoice (or ZipVoiceDistill) with random weights drawn from
     ``seed``, on ``device`` (CUDA unless the caller asks for the CPU), in
     eval mode, with its matmul and conv layers computing in ``dtype``.  For
     inference their weights are cast to ``dtype``; with ``train=True`` every
-    weight stays f32 and is cast at use."""
+    weight stays f32 and is cast at use.  ``kernel_config`` switches every
+    kernel on (``set_kernel_config``); by default only the attention-weights
+    kernels are."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -254,4 +258,4 @@ def build_zipvoice(distill: bool = False, device="cuda",
     model.to(device).eval()
     for backbone in (model.fm_decoder, model.text_encoder):
         set_compute_dtype(backbone, dtype, cast_weights=not train)
-    return model
+    return set_kernel_config(model, kernel_config)

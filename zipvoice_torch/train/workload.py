@@ -35,10 +35,13 @@ def train_batch(seed: int, B: int = 8, S: int = 128, T: int = 1280,
 
 
 def build_trainer(seed: int, dtype: torch.dtype = torch.bfloat16,
-                  device="cuda"):
-    """(model, optimizer, train_step) for the ZipVoice base at full width."""
+                  device="cuda", kernel_config: bool = False):
+    """(model, optimizer, train_step) for the ZipVoice base at full width;
+    with ``kernel_config`` every kernel is on (in training that adds the
+    depthwise-conv pair to the attention pair)."""
     model = build_zipvoice(vocab_size=360, dtype=dtype, seed=seed,
-                           train=True, device=device)
+                           train=True, device=device,
+                           kernel_config=kernel_config)
     opt = ScaledAdam(model.parameters(), lr=eden_schedule(base_lr=0.02),
                      clipping_scale=2.0)
     step = make_train_step(model, opt, dropout_rate=None, schedules=True,
