@@ -36,15 +36,17 @@ are built for sm_90a).  Phases, each of which must pass:
    and 12 backward launches in the first run, none in the second;
 8. hold the kernels of the kernel configuration against their plain
    versions on the card: the fused weights + NonlinAttention kernel and
-   the application kernel at B=16, h=4, T in {640, 1280, 2560} with padded
-   keys, the depthwise conv at B=16 and its backward at B=8 at the levels'
-   shapes (C=512 with T 1280/640/320 and k 31/15/7, C=192 with T=128 and
-   k=9), in bf16 (one rounding; na also the rounding of the weights it
-   sums) and f32 (2e-6, for the f32 sums over T keys 2e-6 of max(1, the
-   tensor's largest |value|); the backward's
-   outputs within 1e-4 of each tensor's largest |value|, plus one rounding
-   in bf16), and time each at the main path's shape beside its plain
-   version and the PyTorch call that computes the same function;
+   the application kernel at B=16, h=4, T in {640, 1279, 1280, 2560} with
+   padded keys, the depthwise conv at B=16 and its backward at B=8 at the
+   levels' shapes (C=512 with T 1280/640/320 and k 31/15/7, C=192 with
+   T=128 and k=9), in bf16 (one rounding; na also the rounding of the
+   weights it sums) and f32 (2e-6, for the f32 sums over T keys 2e-6 of
+   max(1, the tensor's largest |value|); the backward's outputs within
+   1e-4 of each tensor's largest |value|, plus one rounding in bf16), and
+   time each at the main path's shape beside its plain
+   version and the PyTorch call that computes the same function (the fused
+   kernel and the application kernel at T 640 and 1280, the first beside
+   the inference weights kernel, the second beside ``torch.matmul``);
 9. drive the B=8 request of phase 3 through ``InferencePipeline`` in the
    kernel configuration (every kernel switch on): launches as the model's
    switches and gates predict (no inference-weights launch), its wall
@@ -716,6 +718,7 @@ def phase_config_kernels(card, seed):
     from zipvoice_torch.kernels.rel_pos_attention import (
         attention_apply,
         attention_apply_ref,
+        rel_pos_attention_weights,
         rel_pos_attention_weights_nonlin,
         rel_pos_attention_weights_nonlin_ref,
     )
@@ -735,7 +738,8 @@ def phase_config_kernels(card, seed):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"({what}): {ratio}")
 
-    for T in (640, 1280, 2560):
+    # T=1279: a ragged length (no multiple of a row tile, key chunk or 8)
+    for T in (640, 1279, 1280, 2560):
         for dtype in (torch.bfloat16, torch.float32):
             args = attention_inputs(B, h, T, qd, pd, seed + T, dtype)
             g = torch.Generator(device="cuda").manual_seed(seed + T + 1)
@@ -763,30 +767,37 @@ def phase_config_kernels(card, seed):
             record("rel_pos_attention_weights_nonlin", max(ew, en),
                    max(rw, rn), tag)
             record("attention_apply", ea, ra, tag)
-            if T == 1280 and dtype == torch.bfloat16:
+            if T in (640, 1280) and dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: rel_pos_attention_weights_nonlin(
                     *args, nv), iters=20)
                 plain_ms = cuda_ms(
                     lambda: rel_pos_attention_weights_nonlin_ref(*args, nv),
                     iters=5)
+                # the inference weights kernel on the same inputs: the
+                # fusion pays where the fused kernel is the faster
+                w_ms = cuda_ms(lambda: rel_pos_attention_weights(*args),
+                               iters=20)
                 b_ms, b_by = bound(*nonlin_traffic(B, h, T, qd, pd, hid))
-                entries["rel_pos_attention_weights_nonlin"] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None)
                 a_ms = cuda_ms(lambda: attention_apply(w, v), iters=20)
                 a_plain = cuda_ms(lambda: attention_apply_ref(w, v), iters=5)
                 # the one PyTorch call: a batched bf16 matmul (cuBLAS) on
                 # the same contiguous (B, h, T, T) and (B, h, T, 12) tensors
                 a_lib = cuda_ms(lambda: torch.matmul(w, v), iters=20)
                 ab_ms, ab_by = bound(*apply_traffic(B, h, T, vd))
-                entries["attention_apply"] = dict(
-                    ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms, bound_by=ab_by,
-                    library_ms=a_lib)
+                if T == 1280:  # the main path's top level
+                    entries["rel_pos_attention_weights_nonlin"] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+                    entries["attention_apply"] = dict(
+                        ms=a_ms, plain_ms=a_plain, bound_ms=ab_ms,
+                        bound_by=ab_by, library_ms=a_lib)
                 print(f"timed {tag} [{card}]: nonlin {ms:.4f} ms (plain "
                       f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms, {b_by}, "
-                      f"library_ms: none); apply {a_ms:.4f} ms (plain "
-                      f"{a_plain:.4f} ms, bound {ab_ms:.4f} ms, {ab_by}, "
-                      f"torch.matmul {a_lib:.4f} ms)", flush=True)
+                      f"library_ms: none; the weights kernel alone "
+                      f"{w_ms:.4f} ms: fused {w_ms / ms:.2f}x as fast); "
+                      f"apply {a_ms:.4f} ms (plain {a_plain:.4f} ms, bound "
+                      f"{ab_ms:.4f} ms, {ab_by}, torch.matmul {a_lib:.4f} "
+                      f"ms: {a_lib / a_ms:.2f}x as fast)", flush=True)
             del args, nv, v, w, na, out
             torch.cuda.empty_cache()
 
@@ -1063,7 +1074,7 @@ def main(argv=None) -> int:
             "zipvoice_torch/csrc/rel_pos_attention.cu",
             "zipvoice_tpu/ops/pallas_attention.py:103"),
         "rel_pos_attention_weights_nonlin": (
-            "zipvoice_torch/csrc/rel_pos_attention.cu",
+            "zipvoice_torch/csrc/rel_pos_attention_nonlin.cu",
             "zipvoice_tpu/ops/pallas_attention.py:240"),
         "attention_apply": (
             "zipvoice_torch/csrc/attention_apply.cu",

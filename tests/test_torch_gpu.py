@@ -340,11 +340,17 @@ def _assert_sums_match(got, want, spread=None):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,qd,hid", [(37, 8, 48), (640, 32, 384),
-                                      (1029, 32, 144)])
+                                      (1029, 32, 144), (37, 32, 384),
+                                      (641, 8, 144), (641, 32, 48),
+                                      (1029, 8, 384), (1279, 32, 384),
+                                      (1279, 8, 48)])
 def test_nonlin_kernel_matches_plain(dtype, T, qd, hid):
-    """The nonlin build: the weights as the inference build gives them,
-    and na as ``_assert_sums_match`` holds it against the plain version,
-    which applies its own rounded weights in f32."""
+    """The fused kernel: the weights within one rounding of the plain
+    version's and of the inference kernel's (f32: the same bits, one code
+    path), and na as ``_assert_sums_match`` holds it against the plain
+    version, which applies its own rounded weights in f32.  Ragged T (no
+    multiple of the bf16 build's 64-row tiles, 128-key chunks or 8),
+    padded keys and a fully masked sequence, every hid and qd."""
     _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _inputs(4, 4, T, qd, 4, dtype, seed=T + 2)
@@ -355,17 +361,22 @@ def test_nonlin_kernel_matches_plain(dtype, T, qd, hid):
     assert rel_pos_attention_weights_nonlin.launches == before + 1
     want_w, want_na = rel_pos_attention_weights_nonlin_ref(*args, nv)
     _assert_matches(w, want_w)
-    assert torch.equal(w, rel_pos_attention_weights(*args))
+    if dtype == torch.float32:
+        assert torch.equal(w, rel_pos_attention_weights(*args))
+    else:
+        _assert_matches(w, rel_pos_attention_weights(*args))
     _assert_sums_match(na, want_na,
                        torch.matmul(want_w[:, 0].float(), nv.float().abs()))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T", [37, 640, 1029])
+@pytest.mark.parametrize("T", [37, 640, 641, 1029, 1279, 2560])
 def test_apply_kernel_matches_plain(dtype, T):
-    """weights @ values, as ``_assert_sums_match`` holds them; T=37 and
-    T=1029 take the kernel's unaligned loop."""
+    """weights @ values, as ``_assert_sums_match`` holds them, over padded
+    keys and a fully masked sequence; T=37, 641, 1029 and 1279 (no
+    multiple of 8 or of the bf16 build's 64-row tiles and 64-key chunks)
+    take the kernels' unaligned loads."""
     _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     w = rel_pos_attention_weights_ref(*_inputs(4, 4, T, 8, 4, dtype,
@@ -415,8 +426,8 @@ def test_layer_kernel_config_launches_and_matches_plain(monkeypatch):
 @pytest.mark.gpu
 def test_new_kernels_reject_what_they_are_not_built_for():
     """An even or unbuilt kernel size, an unbuilt hid, a vd other than 12
-    and an unbuilt qd raise on the card; none falls back to the plain
-    version."""
+    and an unbuilt qd raise on the card (the attention kernels in both
+    dtypes); none falls back to the plain version."""
     _cuda()
     v, w, b = _conv_inputs(2, 64, 32, 7, torch.float32, seed=0)
     for k in (4, 11):
@@ -426,15 +437,17 @@ def test_new_kernels_reject_what_they_are_not_built_for():
             depthwise_conv1d_bwd(v, v, torch.zeros(32, k, device="cuda"))
     with pytest.raises(ValueError):
         depthwise_conv1d(v.half(), w.half(), b.half())
-    args = _inputs(3, 4, 64, 8, 4, torch.float32, seed=0)
-    for hid in (47, 96, 386):
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _inputs(3, 4, 64, 8, 4, dtype, seed=0)
+        for hid in (47, 96, 386):
+            with pytest.raises(ValueError):
+                rel_pos_attention_weights_nonlin(
+                    *args, torch.zeros(3, 64, hid, device="cuda", dtype=dtype))
         with pytest.raises(ValueError):
             rel_pos_attention_weights_nonlin(
-                *args, torch.zeros(3, 64, hid, device="cuda"))
-    with pytest.raises(ValueError):
-        rel_pos_attention_weights_nonlin(
-            *_inputs(3, 4, 64, 16, 4, torch.float32, seed=0),
-            torch.zeros(3, 64, 48, device="cuda"))
-    wts = rel_pos_attention_weights_ref(*args)
-    with pytest.raises(ValueError):
-        attention_apply(wts, torch.zeros(3, 4, 64, 16, device="cuda"))
+                *_inputs(3, 4, 64, 16, 4, dtype, seed=0),
+                torch.zeros(3, 64, 48, device="cuda", dtype=dtype))
+        wts = rel_pos_attention_weights_ref(*args)
+        with pytest.raises(ValueError):
+            attention_apply(wts, torch.zeros(3, 4, 64, 16, device="cuda",
+                                             dtype=dtype))

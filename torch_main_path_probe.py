@@ -56,8 +56,9 @@ def profile_request(pipe, req, name, card):
           f"{total_us / 1e6:.4f} s ({100 * total_us / 1e6 / wall:.1f}% of "
           f"this profiled wall), {sum(e.count for e in events)} device "
           f"kernels; rel-pos attention kernel "
-          f"{share('rel_pos_weights_kernel')}, application kernel "
-          f"{share('attn_apply_kernel')}, conv kernel "
+          f"{share('rel_pos_weights_kernel')}, fused weights + "
+          f"NonlinAttention kernel {share('nonlin_')}, application kernel "
+          f"{share('attn_apply')}, conv kernel "
           f"{share('dwconv_kernel')}, PyTorch depthwise conv "
           f"{share('depthwise')} [{card}]", flush=True)
     print("top device kernels (self device time):")

@@ -30,24 +30,6 @@
 // It adds one register-resident max per key and one block reduction, nothing
 // to the bytes; the inference build (kBlockMax = false) compiles to the code it
 // had before the training build existed.
-//
-// The nonlin build (kHid > 0) replaces
-// zipvoice_tpu/ops/pallas_attention.py::_attn_weights_nonlin_kernel: the same weights,
-// and a block of head 0 also applies its rows' weights, rounded to the output dtype
-// as the TPU kernel's `wc` is, to NonlinAttention's gated values:
-//
-//   na[b, i, :] = sum_j wc[b, 0, i, j] * nv[b, j, :]    (f32 sums, rounded once),
-//
-// which saves the (B, T, T) re-read of head 0's weights and a launch.  The weights
-// stay in shared memory after the softmax; nv (B, T, kHid) streams through two
-// shared-memory buffers of kNvKeys keys, filled by cp.async one tile ahead of the
-// sums; four groups of 64 threads each take a quarter of a tile's keys, each thread
-// holds its channel pairs of all kRows rows in registers, and the four groups are
-// folded in a fixed order at the end.  This adds 2 T kHid multiply-adds per row to
-// head 0's blocks (about 10x a weights block's work at kHid = 384) on the CUDA cores
-// in f32, and each head-0 block reads its sequence's nv from L2; tensor cores and
-// row tiles that share nv are later work.  The other heads' blocks do exactly what
-// the inference build does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +45,6 @@ constexpr int kKeysPerThread = 2;             // keys each thread scores per chu
 constexpr int kChunk = kThreads * kKeysPerThread;
 constexpr int kPD = 4;                        // pos_head_dim
 constexpr int kWindow = kChunk + kRows - 1;   // pe rows one chunk can read
-constexpr int kNvKeys = 32;                   // nonlin build: keys per nv tile
-constexpr int kKeyGroups = kThreads / 64;     // nonlin build: 64 threads per group
-constexpr int kGroupKeys = kNvKeys / kKeyGroups;
-static_assert(kGroupKeys % 4 == 0, "a group reads its keys' weights as float4s");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -91,36 +69,6 @@ __device__ __forceinline__ void load_row(const T* __restrict__ src, float (&dst)
   }
 }
 
-// Two neighbouring channels of nv: raw (to stage them) and as f32.
-template <typename T> struct Pair;
-template <> struct Pair<float> {
-  using Raw = uint2;
-  static __device__ __forceinline__ float2 get(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
-};
-template <> struct Pair<__nv_bfloat16> {
-  using Raw = uint32_t;
-  static __device__ __forceinline__ float2 get(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-
-// 16 bytes global -> shared without registers; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group have landed
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -136,22 +84,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 // grid = (ceil(T / kRows), B * H); block = kThreads.
 // q, k: (B, H, T, QD); p: (B, H, T, kPD); pe: (H, 2T-1, kPD); mask: (B, T) bytes,
 // nonzero = padded key; out: (B, H, T, T); block_max (training build only):
-// (B * H, ceil(T / kRows)) f32; nv, na (nonlin build only): (B, T, kHid).  All
-// contiguous.
-template <typename T, int QD, bool kBlockMax, int kHid>
+// (B * H, ceil(T / kRows)) f32.  All contiguous.
+template <typename T, int QD, bool kBlockMax>
 __global__ void __launch_bounds__(kThreads)
 rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ p, const T* __restrict__ pe,
                        const uint8_t* __restrict__ mask, T* __restrict__ out,
-                       float* __restrict__ block_max, const T* __restrict__ nv,
-                       T* __restrict__ na, int H, int seq) {
+                       float* __restrict__ block_max, int H, int seq) {
   extern __shared__ __align__(16) float smem[];
-  // score rows; the nonlin build pads them to whole nv tiles
-  const int ld = kHid > 0 ? (seq + kNvKeys - 1) / kNvKeys * kNvKeys : seq;
   float* q_s = smem;                          // [kRows][QD]
   float* p_s = q_s + kRows * QD;              // [kRows][kPD]
   float* pe_s = p_s + kRows * kPD;            // [kWindow][kPD]
-  float* scores = pe_s + kWindow * kPD;       // [kRows][ld]
+  float* scores = pe_s + kWindow * kPD;       // [kRows][seq]
 
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -226,7 +170,7 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (live[u]) {
           const float score = acc[u] + pos;
           if constexpr (kBlockMax) abs_max = fmaxf(abs_max, fabsf(score));
-          scores[(size_t)r * ld + j0 + jl] = masked[u] ? -1000.f : score;
+          scores[(size_t)r * seq + j0 + jl] = masked[u] ? -1000.f : score;
         }
       }
     }
@@ -249,7 +193,7 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Row softmax: one warp per row, in f32, then one write per weight.
   for (int r = warp; r < nrows; r += kWarps) {
-    float* row = scores + (size_t)r * ld;
+    float* row = scores + (size_t)r * seq;
     float m = -INFINITY;
     for (int j = lane; j < seq; j += 32) m = fmaxf(m, row[j]);
     m = warp_max(m);
@@ -261,122 +205,17 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const float inv = 1.f / warp_sum(sum);
     T* orow = out + (row0 + r) * (size_t)seq;
-    for (int j = lane; j < seq; j += 32) {
-      const T wv = from_float<T>(row[j] * inv);
-      orow[j] = wv;
-      if constexpr (kHid > 0) row[j] = to_float(wv);  // wc, as head 0 applies it
-    }
-    if constexpr (kHid > 0)
-      for (int j = seq + lane; j < ld; j += 32) row[j] = 0.f;
-  }
-
-  if constexpr (kHid > 0) {
-    if (h != 0) return;  // the whole block: only head 0 applies its weights
-    static_assert(kHid % 2 == 0 && (kHid * sizeof(T)) % 16 == 0,
-                  "nv rows must be whole 16-byte vectors of channel pairs");
-    constexpr int kPairs = kHid / 2;
-    constexpr int kNaPairs = (kPairs + 63) / 64;  // channel pairs per thread
-    constexpr int kRowVecs = kHid * (int)sizeof(T) / 16;
-    constexpr int kTileElems = kNvKeys * kHid;
-    T* tiles = reinterpret_cast<T*>(scores + (size_t)kRows * ld);  // [2][kNvKeys][kHid]
-    const int group = threadIdx.x / 64;
-    const int cl = threadIdx.x % 64;
-    const T* nv_b = nv + (size_t)b * seq * kHid;
-    auto fetch = [&](int tile, T* dst) {
-      const int j0 = tile * kNvKeys;
-      for (int x = threadIdx.x; x < kNvKeys * kRowVecs; x += kThreads) {
-        const int j = j0 + x / kRowVecs;
-        const T* src = nv_b + (size_t)(j < seq ? j : 0) * kHid;
-        cp_async16(reinterpret_cast<uint4*>(dst) + x,
-                   reinterpret_cast<const uint4*>(src) + x % kRowVecs, j < seq);
-      }
-      cp_async_commit();
-    };
-    float acc[kRows][2 * kNaPairs];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int m = 0; m < 2 * kNaPairs; ++m) acc[r][m] = 0.f;
-
-    const int ntiles = ld / kNvKeys;
-    fetch(0, tiles);
-    for (int t = 0; t < ntiles; ++t) {
-      if (t + 1 < ntiles)
-        fetch(t + 1, tiles + ((t + 1) & 1) * kTileElems);
-      else
-        cp_async_commit();  // an empty group keeps "all but the newest" exact
-      cp_async_wait_one();
-      __syncthreads();  // tile t has landed for every thread; the weights are final
-      const T* tile = tiles + (t & 1) * kTileElems;
-      const int jg = t * kNvKeys + group * kGroupKeys;
-#pragma unroll
-      for (int c4 = 0; c4 < kGroupKeys / 4; ++c4) {
-        float4 wq[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          wq[r] = r < nrows
-                      ? *reinterpret_cast<const float4*>(scores + (size_t)r * ld + jg + 4 * c4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const T* vrow = tile + (group * kGroupKeys + 4 * c4 + u) * kHid;
-#pragma unroll
-          for (int m = 0; m < kNaPairs; ++m) {
-            const int pr = cl + 64 * m;
-            if (pr < kPairs) {
-              const float2 v = Pair<T>::get(vrow + 2 * pr);
-#pragma unroll
-              for (int r = 0; r < kRows; ++r) {
-                const float wv = lane_of(wq[r], u);
-                acc[r][2 * m] = fmaf(wv, v.x, acc[r][2 * m]);
-                acc[r][2 * m + 1] = fmaf(wv, v.y, acc[r][2 * m + 1]);
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();  // done with this buffer before it is refilled
-    }
-
-    // fold the key groups in order 0..3 over the tiles: red[kRows][kHid]
-    float* red = reinterpret_cast<float*>(tiles);
-    for (int s = 0; s < kKeyGroups; ++s) {
-      if (group == s) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-#pragma unroll
-          for (int m = 0; m < kNaPairs; ++m) {
-            const int pr = cl + 64 * m;
-            if (pr < kPairs && r < nrows) {
-              float* dst = red + (size_t)r * kHid + 2 * pr;
-              dst[0] = (s ? dst[0] : 0.f) + acc[r][2 * m];
-              dst[1] = (s ? dst[1] : 0.f) + acc[r][2 * m + 1];
-            }
-          }
-      }
-      __syncthreads();
-    }
-    T* na_rows = na + ((size_t)b * seq + i0) * kHid;
-    for (int x = threadIdx.x; x < nrows * kHid; x += kThreads) na_rows[x] = from_float<T>(red[x]);
+    for (int j = lane; j < seq; j += 32) orow[j] = from_float<T>(row[j] * inv);
   }
 }
 
-// Dynamic shared memory of one block; hid = 0 for the builds without na.
-long long smem_bytes(int qd, int seq, int hid, int itemsize) {
-  const long long head = (long long)kRows * qd + kRows * kPD + kWindow * kPD;
-  if (hid == 0) return (long long)sizeof(float) * (head + (long long)kRows * seq);
-  const long long ld = (seq + kNvKeys - 1) / kNvKeys * kNvKeys;
-  const long long tiles = 2LL * kNvKeys * hid * itemsize;  // two nv tiles
-  const long long fold = (long long)kRows * hid * sizeof(float);
-  return (long long)sizeof(float) * (head + kRows * ld) + (tiles > fold ? tiles : fold);
-}
-
-template <typename T, int QD, bool kBlockMax, int kHid>
+template <typename T, int QD, bool kBlockMax>
 cudaError_t launch(const void* q, const void* k, const void* p, const void* pe,
-                   const void* mask, void* out, float* block_max, const void* nv, void* na,
-                   int B, int H, int seq, cudaStream_t stream) {
-  const size_t smem = smem_bytes(QD, seq, kHid, sizeof(T));
-  auto kernel = rel_pos_weights_kernel<T, QD, kBlockMax, kHid>;
+                   const void* mask, void* out, float* block_max, int B, int H, int seq,
+                   cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)kRows * QD + kRows * kPD + kWindow * kPD + (size_t)kRows * seq);
+  auto kernel = rel_pos_weights_kernel<T, QD, kBlockMax>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -384,38 +223,35 @@ cudaError_t launch(const void* q, const void* k, const void* p, const void* pe,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
       static_cast<const T*>(pe), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-      block_max, static_cast<const T*>(nv), static_cast<T*>(na), H, seq);
+      block_max, H, seq);
   return cudaGetLastError();
 }
 
-template <typename T, bool kBlockMax, int kHid>
+template <typename T, bool kBlockMax>
 cudaError_t dispatch_qd(int qd, const void* q, const void* k, const void* p, const void* pe,
-                        const void* mask, void* out, float* block_max, const void* nv,
-                        void* na, int B, int H, int seq, cudaStream_t stream) {
+                        const void* mask, void* out, float* block_max, int B, int H, int seq,
+                        cudaStream_t stream) {
   // 32: the ZipVoice models' query_head_dim; 8: the tests' small models
   switch (qd) {
     case 8:
-      return launch<T, 8, kBlockMax, kHid>(q, k, p, pe, mask, out, block_max, nv, na, B, H,
-                                           seq, stream);
+      return launch<T, 8, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
     case 32:
-      return launch<T, 32, kBlockMax, kHid>(q, k, p, pe, mask, out, block_max, nv, na, B, H,
-                                            seq, stream);
+      return launch<T, 32, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kBlockMax, int kHid>
+template <bool kBlockMax>
 int dispatch(int dtype, int qd, const void* q, const void* k, const void* p, const void* pe,
-             const void* mask, void* out, float* block_max, const void* nv, void* na, int B,
-             int H, int seq, void* stream) {
+             const void* mask, void* out, float* block_max, int B, int H, int seq,
+             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_qd<float, kBlockMax, kHid>(qd, q, k, p, pe, mask, out, block_max, nv, na,
-                                                 B, H, seq, s);
+      return dispatch_qd<float, kBlockMax>(qd, q, k, p, pe, mask, out, block_max, B, H, seq, s);
     case 1:
-      return dispatch_qd<__nv_bfloat16, kBlockMax, kHid>(qd, q, k, p, pe, mask, out, block_max,
-                                                         nv, na, B, H, seq, s);
+      return dispatch_qd<__nv_bfloat16, kBlockMax>(qd, q, k, p, pe, mask, out, block_max, B, H,
+                                                   seq, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -427,8 +263,7 @@ int dispatch(int dtype, int qd, const void* q, const void* k, const void* p, con
 extern "C" int zv_rel_pos_attention_weights(int dtype, int qd, const void* q, const void* k,
                                             const void* p, const void* pe, const void* mask,
                                             void* out, int B, int H, int seq, void* stream) {
-  return dispatch<false, 0>(dtype, qd, q, k, p, pe, mask, out, nullptr, nullptr, nullptr, B, H,
-                            seq, stream);
+  return dispatch<false>(dtype, qd, q, k, p, pe, mask, out, nullptr, B, H, seq, stream);
 }
 
 // The training build: as above, and block_max ((B * H, ceil(seq / kRows)) f32)
@@ -437,38 +272,16 @@ extern "C" int zv_rel_pos_attention_weights_train(int dtype, int qd, const void*
                                                   const void* k, const void* p, const void* pe,
                                                   const void* mask, void* out, void* block_max,
                                                   int B, int H, int seq, void* stream) {
-  return dispatch<true, 0>(dtype, qd, q, k, p, pe, mask, out, static_cast<float*>(block_max),
-                           nullptr, nullptr, B, H, seq, stream);
-}
-
-// The nonlin build: as zv_rel_pos_attention_weights, and na (B, seq, hid) receives
-// head 0's rounded weights applied to nv (B, seq, hid).  hid is one of the
-// NonlinAttention widths of the ZipVoice models (384 in the fm_decoder, 144 in the
-// text encoder) or 48 (the tests' small layers).
-extern "C" int zv_rel_pos_attention_weights_nonlin(int dtype, int qd, const void* q,
-                                                   const void* k, const void* p,
-                                                   const void* pe, const void* mask, void* out,
-                                                   const void* nv, void* na, int hid, int B,
-                                                   int H, int seq, void* stream) {
-  switch (hid) {
-#define ZV_CASE(HID)                                                                    \
-  case HID:                                                                             \
-    return dispatch<false, HID>(dtype, qd, q, k, p, pe, mask, out, nullptr, nv, na, B, H, \
-                                seq, stream);
-    ZV_CASE(48)
-    ZV_CASE(144)
-    ZV_CASE(384)
-#undef ZV_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<true>(dtype, qd, q, k, p, pe, mask, out, static_cast<float*>(block_max), B,
+                        H, seq, stream);
 }
 
 // Query rows per block: the width of block_max's second axis is ceil(seq / this).
 extern "C" int zv_rel_pos_attention_rows_per_block() { return kRows; }
 
-// Dynamic shared memory one block needs (hid = 0: the inference and training builds;
-// else the nonlin build at that hid, itemsize the bytes of the dtype); the wrapper
-// checks it against the card's limit before launching.
-extern "C" long long zv_rel_pos_attention_smem_bytes(int qd, int seq, int hid, int itemsize) {
-  return smem_bytes(qd, seq, hid, itemsize);
+// Dynamic shared memory one block needs; the wrapper checks it against the
+// card's limit before launching.
+extern "C" long long zv_rel_pos_attention_smem_bytes(int qd, int seq) {
+  return (long long)sizeof(float) *
+         ((long long)kRows * qd + kRows * kPD + kWindow * kPD + (long long)kRows * seq);
 }

@@ -2,7 +2,8 @@
 
 Each ``zipvoice_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository
-root (listed in ``.gitignore``), once per source content; the library is then
+root (listed in ``.gitignore``), once per content of the source and of the
+headers it may include (``csrc/*.cuh``); the library is then
 loaded with ``ctypes``.  Nothing here runs at import time.  The wrappers'
 shared conventions live here too: the dtype codes of the C entry points and
 the checks around a launch.
@@ -47,10 +48,17 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+    """The library's path, keyed by the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    parts = [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh")
+    )
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for part in parts:
+        with open(part, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

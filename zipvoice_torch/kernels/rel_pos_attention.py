@@ -18,10 +18,11 @@ counts its launches in ``<wrapper>.launches``:
 - ``attention_apply`` replaces ``_attn_apply_kernel``: SelfAttention's
   weights @ values.
 
-The first two and the fourth are builds of
-``zipvoice_torch/csrc/rel_pos_attention.cu``, the third is
-``zipvoice_torch/csrc/rel_pos_attention_bwd.cu`` and the fifth
-``zipvoice_torch/csrc/attention_apply.cu``; each source's header says what
+The first two are builds of ``zipvoice_torch/csrc/rel_pos_attention.cu``,
+the third is ``zipvoice_torch/csrc/rel_pos_attention_bwd.cu``, the fourth
+``zipvoice_torch/csrc/rel_pos_attention_nonlin.cu`` and the fifth
+``zipvoice_torch/csrc/attention_apply.cu`` (the last two: a tensor-core
+build for bf16, a CUDA-core build for f32); each source's header says what
 bounds it on an H100 and how its design answers that.
 ``rel_pos_attention_weights_trainable`` joins the training pair in a
 ``torch.autograd.Function``.
@@ -41,13 +42,14 @@ from zipvoice_torch.kernels._build import (
 )
 
 _SOURCE = "rel_pos_attention"
+_NONLIN_SOURCE = "rel_pos_attention_nonlin"
 _BWD_SOURCE = "rel_pos_attention_bwd"
 _APPLY_SOURCE = "attention_apply"
 # query head dims the kernel is built for (rel_pos_attention.cu, dispatch_qd)
 _HEAD_DIMS = (8, 32)
 _POS_HEAD_DIM = 4
-# NonlinAttention hidden widths the nonlin build is built for
-# (rel_pos_attention.cu, zv_rel_pos_attention_weights_nonlin): the
+# NonlinAttention hidden widths the nonlin kernel is built for
+# (rel_pos_attention_nonlin.cu, zv_rel_pos_attention_weights_nonlin): the
 # fm_decoder's 384, the text encoder's 144, the tests' 48
 _HIDDEN_DIMS = (48, 144, 384)
 # value head dim the application kernel is built for (attention_apply.cu)
@@ -113,7 +115,7 @@ def rel_pos_attention_weights_train_ref(q, k, p, pe, key_padding_mask):
 
 
 def rel_pos_attention_weights_nonlin_ref(q, k, p, pe, key_padding_mask, nv):
-    """Plain version of the nonlin build: (weights as
+    """Plain version of the nonlin kernel: (weights as
     ``rel_pos_attention_weights_ref`` gives them, na (B, T, hid) in q's
     dtype), na = weights[:, 0] @ nv with the weights rounded to q's dtype
     first and the product summed in f32."""
@@ -165,19 +167,28 @@ def _kernel():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p
     ]
     train.restype = ctypes.c_int
-    nonlin = lib.zv_rel_pos_attention_weights_nonlin
-    nonlin.argtypes = [ctypes.c_int, ctypes.c_int] + ptrs * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    nonlin.restype = ctypes.c_int
     smem = lib.zv_rel_pos_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 4
+    smem.argtypes = [ctypes.c_int] * 2
     smem.restype = ctypes.c_longlong
     rows = lib.zv_rel_pos_attention_rows_per_block
     rows.argtypes = []
     rows.restype = ctypes.c_int
-    return fn, train, nonlin, smem, rows()
+    return fn, train, smem, rows()
+
+
+@functools.cache
+def _nonlin_kernel():
+    lib = load_library(_NONLIN_SOURCE)
+    fn = lib.zv_rel_pos_attention_weights_nonlin
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    smem = lib.zv_rel_pos_attention_nonlin_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_longlong
+    return fn, smem
 
 
 @functools.cache
@@ -189,7 +200,7 @@ def _apply_kernel():
     ]
     fn.restype = ctypes.c_int
     smem = lib.zv_attention_apply_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return fn, smem
 
@@ -247,7 +258,7 @@ def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None, nv=None):
             f"got qd={qd}, pd={pd}"
         )
     if nv is not None and hid not in _HIDDEN_DIMS:
-        raise ValueError(f"the nonlin build takes hid in {_HIDDEN_DIMS}, "
+        raise ValueError(f"the nonlin kernel takes hid in {_HIDDEN_DIMS}, "
                          f"got {hid}")
     if not 0 < B * h <= 65535 or T <= 0:
         raise ValueError(f"unsupported sizes B*h={B * h}, T={T}")
@@ -271,8 +282,8 @@ def rel_pos_attention_weights(
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
     B, h, T, qd = q.shape
-    fn, _, _, smem_bytes, _ = _kernel()
-    if smem_bytes(qd, T, 0, 0) > _MAX_SMEM:
+    fn, _, smem_bytes, _ = _kernel()
+    if smem_bytes(qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -301,8 +312,8 @@ def rel_pos_attention_weights_train(q, k, p, pe, key_padding_mask):
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
     B, h, T, qd = q.shape
-    _, fn, _, smem_bytes, rows = _kernel()
-    if smem_bytes(qd, T, 0, 0) > _MAX_SMEM:
+    _, fn, smem_bytes, rows = _kernel()
+    if smem_bytes(qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     block_max = torch.empty((B * h, (T + rows - 1) // rows),
@@ -326,17 +337,19 @@ def rel_pos_attention_weights_nonlin(q, k, p, pe, key_padding_mask, nv):
     """The weights (B, h, T, T) as ``rel_pos_attention_weights`` gives
     them, and na = weights[:, 0] @ nv (B, T, hid), both in q's dtype; nv is
     NonlinAttention's gated values (B, T, hid) in q's dtype.  CUDA tensors
-    run the kernel's nonlin build, which computes both in one pass; CPU
-    tensors run the plain version."""
+    run the kernel (``csrc/rel_pos_attention_nonlin.cu``), which computes
+    both in one pass; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return rel_pos_attention_weights_nonlin_ref(q, k, p, pe,
                                                     key_padding_mask, nv)
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask, nv=nv)
+    if p.data_ptr() % 8 or pe.data_ptr() % 8:
+        raise ValueError("p and pe must be 8-byte aligned")
     B, h, T, qd = q.shape
     hid = nv.shape[-1]
-    _, _, fn, smem_bytes, _ = _kernel()
-    if smem_bytes(qd, T, hid, q.element_size()) > _MAX_SMEM:
+    fn, smem_bytes = _nonlin_kernel()
+    if smem_bytes(DTYPE_CODES[q.dtype], qd, T, hid) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     na = torch.empty((B, T, hid), dtype=q.dtype, device=q.device)
@@ -381,7 +394,7 @@ def attention_apply(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if not 0 < B * h <= 65535 or w.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"unsupported B*h={B * h} or unaligned w or v")
     fn, smem_bytes = _apply_kernel()
-    if smem_bytes(vd, T) > _MAX_SMEM:
+    if smem_bytes(DTYPE_CODES[w.dtype], vd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, vd), dtype=v.dtype, device=v.device)
     with torch.cuda.device(w.device):
