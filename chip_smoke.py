@@ -8,10 +8,12 @@ are built for sm_90a).  Phases, each of which must pass:
 
 1. build every CUDA kernel of the port from ``zipvoice_torch/csrc`` (one
    ``nvcc`` per source, all at once) and print the ptxas report;
-2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, element by element, in bf16 (one rounding apart) and
-   in f32 (2e-6), and time the bf16 build and the plain version (CUDA
-   events);
+2. hold the inference weights kernel against its plain PyTorch version
+   on the card at B=16, h=4, T in {320, 640, 1280, 2560}, element by
+   element, in bf16 (one rounding apart) and in f32 (2e-6), and time the
+   bf16 build and the plain version (CUDA events; T=320 is below the gate,
+   where the main path takes the plain version), and at T=1280 the fused
+   weights + NonlinAttention kernel beside it;
 3. drive the main path through ``InferencePipeline`` at full width (the
    ZipVoice base model, 16 steps with CFG, and the Vocos mel-24khz vocoder,
    bf16, random weights from ``--seed``) for three micro-batch requests,
@@ -43,10 +45,11 @@ are built for sm_90a).  Phases, each of which must pass:
    weights it sums) and f32 (2e-6, for the f32 sums over T keys 2e-6 of
    max(1, the tensor's largest |value|); the backward's outputs within
    1e-4 of each tensor's largest |value|, plus one rounding in bf16), and
-   time each at the main path's shape beside its plain
-   version and the PyTorch call that computes the same function (the fused
-   kernel and the application kernel at T 640 and 1280, the first beside
-   the inference weights kernel, the second beside ``torch.matmul``);
+   time each beside its plain version and the PyTorch call that computes
+   the same function (the fused kernel and the application kernel at T 640
+   and 1280, the first beside the inference weights kernel, the second
+   beside ``torch.matmul``; the conv pair at every level, beside
+   ``F.conv1d`` and ``aten.convolution_backward``);
 9. drive the B=8 request of phase 3 through ``InferencePipeline`` in the
    kernel configuration (every kernel switch on): launches as the model's
    switches and gates predict (no inference-weights launch), its wall
@@ -91,14 +94,25 @@ F32_ATOL = 2e-6
 PATH_ATOL = 5e-2
 
 
+# card cycles of spin queued ahead of each timed call (about 150 us at the
+# H100's clock): longer than the host takes to launch one call, a wrapper
+# that allocates its outputs and launches three kernels included
+SPIN_CYCLES_PER_CALL = 300_000
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` on the card (CUDA events)."""
+    """Mean milliseconds of ``fn`` on the card (CUDA events).  The timed
+    calls are queued behind a spin of the card, so that the window holds
+    them back to back: a kernel of a few microseconds is then timed, and
+    not the host's pace of launching it."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -228,16 +242,19 @@ def phase_kernels(card, seed):
     bf16 build (the one the main path runs, also timed) and the f32 build."""
     from zipvoice_torch.kernels.rel_pos_attention import (
         rel_pos_attention_weights,
+        rel_pos_attention_weights_nonlin,
         rel_pos_attention_weights_ref,
     )
     import torch
 
     # the plain version's f32 matmuls stay f32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, h, qd, pd = 16, 4, 32, 4
+    B, h, qd, pd, hid = 16, 4, 32, 4, 384
     entry = None
     worst = 0.0
-    for T in (640, 1280, 2560):
+    # T=320: below MIN_SEQ_LEN (640, the TPU's gate), where the main path
+    # takes the plain skew path; timed beside it for the gate's decision
+    for T in (320, 640, 1280, 2560):
         args = attention_inputs(B, h, T, qd, pd, seed + T, torch.bfloat16)
         got = rel_pos_attention_weights(*args)
         torch.cuda.synchronize()
@@ -260,6 +277,17 @@ def phase_kernels(card, seed):
         if T == 1280:  # the main path's top level
             entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by)
+            # the fused weights + NonlinAttention kernel on the same inputs:
+            # the same weights plus head 0's na, so #1 should be the faster
+            nv = torch.randn(B, T, hid, device="cuda").to(torch.bfloat16)
+            fused_ms = cuda_ms(lambda: rel_pos_attention_weights_nonlin(
+                *args, nv), iters=20)
+            print(f"timed B={B} h={h} T={T} bf16 [{card}]: "
+                  f"rel_pos_attention_weights {ms:.4f} ms, "
+                  f"rel_pos_attention_weights_nonlin (hid {hid}) beside it "
+                  f"{fused_ms:.4f} ms ({fused_ms / ms:.2f}x #1's time)",
+                  flush=True)
+            del nv
         del args, got, want, diff
         args = attention_inputs(B, h, T, qd, pd, seed + T, torch.float32)
         got = rel_pos_attention_weights(*args)
@@ -842,7 +870,7 @@ def phase_config_kernels(card, seed):
             if not max(ratios) <= 1.0:
                 raise AssertionError(f"conv backward disagrees: {tag} "
                                      f"{ratios}")
-            if (C, T, k) == CONV_LEVELS[0] and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 ms = cuda_ms(lambda: depthwise_conv1d(v, w, b), iters=20)
                 plain_ms = cuda_ms(lambda: depthwise_conv1d_ref(v, w, b),
                                    iters=5)
@@ -855,9 +883,6 @@ def phase_config_kernels(card, seed):
                 lib = cuda_ms(lambda: F.conv1d(v_ct, w3, b, padding=k // 2,
                                                groups=C), iters=20)
                 b_ms, b_by = bound(*conv_traffic(B, T, C, k))
-                entries["depthwise_conv1d"] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib)
                 bms = cuda_ms(lambda: depthwise_conv1d_bwd(vt, gt, w),
                               iters=20)
                 bplain = cuda_ms(lambda: depthwise_conv1d_bwd_ref(vt, gt, w),
@@ -870,15 +895,20 @@ def phase_config_kernels(card, seed):
                     gt_ct, vt_ct, w3, [C], [1], [k // 2], [1], False, [0], C,
                     [True, True, True]), iters=20)
                 bb_ms, bb_by = bound(*conv_bwd_traffic(Bt, T, C, k))
-                entries["depthwise_conv1d_bwd"] = dict(
-                    ms=bms, plain_ms=bplain, bound_ms=bb_ms, bound_by=bb_by,
-                    library_ms=blib)
+                if (C, T, k) == CONV_LEVELS[0]:  # the main path's top level
+                    entries["depthwise_conv1d"] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib)
+                    entries["depthwise_conv1d_bwd"] = dict(
+                        ms=bms, plain_ms=bplain, bound_ms=bb_ms,
+                        bound_by=bb_by, library_ms=blib)
                 print(f"timed conv C={C} T={T} k={k} bf16 [{card}]: forward "
                       f"B={B} {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                      f"{b_ms:.4f} ms, {b_by}, F.conv1d {lib:.4f} ms); "
-                      f"backward B={Bt} {bms:.4f} ms (plain {bplain:.4f} ms, "
-                      f"bound {bb_ms:.4f} ms, {bb_by}, "
-                      f"aten.convolution_backward {blib:.4f} ms)",
+                      f"{b_ms:.4f} ms, {b_by}, F.conv1d {lib:.4f} ms: "
+                      f"{lib / ms:.2f}x as fast); backward B={Bt} "
+                      f"{bms:.4f} ms (plain {bplain:.4f} ms, bound "
+                      f"{bb_ms:.4f} ms, {bb_by}, aten.convolution_backward "
+                      f"{blib:.4f} ms: {blib / bms:.2f}x as fast)",
                       flush=True)
             del v, w, b, vt, gt, got, got_b, want_b
             torch.cuda.empty_cache()

@@ -3,9 +3,11 @@
 
     python3 kernel_bounds.py
 
-For every function of the JAX package that reaches ``pl.pallas_call``, at the
-shapes its path gives it, prints the bytes it must move (each input read
-once, each output written once) and its operations, and the bound: the
+For every function of the JAX package that reaches ``pl.pallas_call``, at
+every shape its path gives it (the main path's levels: the attention
+kernels at T and T/2, the conv at T, T/2, T/4 and in the text encoder),
+prints the bytes it must move (each input read once, each output written
+once) and its operations, and the bound: the
 larger of bytes over the HBM rate and operations over the bf16 tensor rate
 (H100 SXM data sheet, ``chip_smoke.HBM_BYTES_PER_S`` and
 ``BF16_FLOP_PER_S``).  Pure arithmetic: it needs no card.  Every row is
@@ -15,6 +17,7 @@ larger of bytes over the HBM rate and operations over the bf16 tensor rate
 """
 
 from chip_smoke import (
+    CONV_LEVELS,
     apply_traffic,
     attention_traffic,
     bound,
@@ -28,32 +31,37 @@ BF16 = 2
 
 
 def rows():
-    # inference: B=16 (8 requests doubled for CFG), h=4, T=1280, qd=32,
-    # pd=4, NonlinAttention hidden 384, value head dim 12, conv channels 512
-    # (kernel 31 at the top level); training: B=8
-    B, h, T, qd, pd, hid, vd, C, k = 16, 4, 1280, 32, 4, 384, 12, 512, 31
-    wb, wf = attention_traffic(B, h, T, qd, pd)
-    yield ("#1 _attn_weights_kernel", "B=16 T=1280 bf16", wb, wf,
-           bound(wb, wf))
-    nb, nf = nonlin_traffic(B, h, T, qd, pd, hid)
-    yield ("#2 _attn_weights_nonlin_kernel", "B=16 T=1280 bf16, hid 384",
-           nb, nf, bound(nb, nf))
-    ab, af = apply_traffic(B, h, T, vd)
-    yield ("#3 _attn_apply_kernel", "B=16 T=1280 bf16, vd 12", ab, af,
-           bound(ab, af))
-    Bt = 8
+    # inference: B=16 (8 requests doubled for CFG), h=4, T=1280 and its
+    # T/2 level, qd=32, pd=4, NonlinAttention hidden 384, value head dim 12;
+    # training: B=8; the conv at CONV_LEVELS' (channels, T, kernel size)
+    B, h, qd, pd, hid, vd = 16, 4, 32, 4, 384, 12
+    for T in (1280, 640):
+        wb, wf = attention_traffic(B, h, T, qd, pd)
+        yield ("#1 _attn_weights_kernel", f"B=16 T={T} bf16", wb, wf,
+               bound(wb, wf))
+    for T in (1280, 640):
+        nb, nf = nonlin_traffic(B, h, T, qd, pd, hid)
+        yield ("#2 _attn_weights_nonlin_kernel", f"B=16 T={T} bf16, hid 384",
+               nb, nf, bound(nb, nf))
+    for T in (1280, 640):
+        ab, af = apply_traffic(B, h, T, vd)
+        yield ("#3 _attn_apply_kernel", f"B=16 T={T} bf16, vd 12", ab, af,
+               bound(ab, af))
+    Bt, T = 8, 1280
     tb, tf = attention_traffic(Bt, h, T, qd, pd, train=True)
     yield ("#4 _attn_weights_train_kernel", "B=8 T=1280 bf16", tb, tf,
            bound(tb, tf))
     bb, bf = bwd_traffic(Bt, h, T, qd, pd, BF16, penalty=False)
     yield ("#5 _attn_weights_bwd_kernel", "B=8 T=1280 bf16, penalty off",
            bb, bf, bound(bb, bf))
-    cb, cf = conv_traffic(B, T, C, k)
-    yield ("#6 _dwconv_kernel", "B=16 T=1280 C=512 k=31 bf16", cb, cf,
-           bound(cb, cf))
-    db, df = conv_bwd_traffic(Bt, T, C, k)
-    yield ("#7 _dwconv_bwd_kernel", "B=8 T=1280 C=512 k=31 bf16", db, df,
-           bound(db, df))
+    for C, T, k in CONV_LEVELS:
+        cb, cf = conv_traffic(B, T, C, k)
+        yield ("#6 _dwconv_kernel", f"B=16 T={T} C={C} k={k} bf16", cb, cf,
+               bound(cb, cf))
+    for C, T, k in CONV_LEVELS:
+        db, df = conv_bwd_traffic(Bt, T, C, k)
+        yield ("#7 _dwconv_bwd_kernel", f"B=8 T={T} C={C} k={k} bf16", db,
+               df, bound(db, df))
 
 
 def main():

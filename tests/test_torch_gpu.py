@@ -76,9 +76,14 @@ def _assert_matches(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,qd", [(37, 8), (640, 32), (1029, 32),
+@pytest.mark.parametrize("T,qd", [(37, 8), (63, 32), (64, 32), (65, 32),
+                                  (640, 32), (1029, 32), (1279, 32),
                                   (3072, 32)])
 def test_rel_pos_attention_kernel_matches_plain(dtype, T, qd):
+    """Ragged T around the bf16 build's 64-row tiles and 128-key chunks
+    (63, 65), T no multiple of 8 (37, 63, 65, 1029, 1279: the weights'
+    rows are then not 16-byte aligned), padded keys, and a fully masked
+    sequence whose rows stay uniform at 1/T."""
     _cuda()
     args = _inputs(4, 4, T, qd, 4, dtype, seed=T)
     before = rel_pos_attention_weights.launches
@@ -247,10 +252,16 @@ def _conv_inputs(B, T, C, k, dtype, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,T,C,k", [(3, 37, 40, 5), (4, 320, 512, 7),
-                                     (2, 700, 512, 31), (4, 128, 192, 9)])
+                                     (2, 700, 512, 31), (4, 128, 192, 9),
+                                     (2, 5, 64, 31), (2, 70, 37, 3),
+                                     (16, 1280, 512, 31), (16, 640, 512, 15),
+                                     (16, 320, 512, 7), (16, 128, 192, 9)])
 def test_depthwise_conv_kernel_matches_plain(dtype, B, T, C, k):
-    """Ragged T and C (no multiple of the 64-row, 64-channel tiles) and
-    the main path's kernel sizes."""
+    """Ragged T and C (no multiple of the 64-row, 64-channel tiles; C=37
+    also odd and no multiple of 16 bytes, so copied and stored element by
+    element), T < k (5 rows under a 31-tap filter: all but the taps that
+    reach the sequence are SAME padding), and the main path's four levels
+    at B=16, whose runs of tiles span several 64-row tiles a block."""
     _cuda()
     torch.backends.cudnn.allow_tf32 = False
     v, w, b = _conv_inputs(B, T, C, k, dtype, seed=T + k)
@@ -346,9 +357,10 @@ def _assert_sums_match(got, want, spread=None):
                                       (1279, 8, 48)])
 def test_nonlin_kernel_matches_plain(dtype, T, qd, hid):
     """The fused kernel: the weights within one rounding of the plain
-    version's and of the inference kernel's (f32: the same bits, one code
-    path), and na as ``_assert_sums_match`` holds it against the plain
-    version, which applies its own rounded weights in f32.  Ragged T (no
+    version's and the same bits as the inference kernel's (each dtype's
+    builds of the two share one code path for the weights), and na as
+    ``_assert_sums_match`` holds it against the plain version, which
+    applies its own rounded weights in f32.  Ragged T (no
     multiple of the bf16 build's 64-row tiles, 128-key chunks or 8),
     padded keys and a fully masked sequence, every hid and qd."""
     _cuda()
@@ -361,10 +373,7 @@ def test_nonlin_kernel_matches_plain(dtype, T, qd, hid):
     assert rel_pos_attention_weights_nonlin.launches == before + 1
     want_w, want_na = rel_pos_attention_weights_nonlin_ref(*args, nv)
     _assert_matches(w, want_w)
-    if dtype == torch.float32:
-        assert torch.equal(w, rel_pos_attention_weights(*args))
-    else:
-        _assert_matches(w, rel_pos_attention_weights(*args))
+    assert torch.equal(w, rel_pos_attention_weights(*args))
     _assert_sums_match(na, want_na,
                        torch.matmul(want_w[:, 0].float(), nv.float().abs()))
 

@@ -46,9 +46,10 @@ def profile_request(pipe, req, name, card):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in events)
 
-    def share(word):
-        us = sum(e.self_device_time_total for e in events if word in e.key)
-        n = sum(e.count for e in events if word in e.key)
+    def share(*words):
+        mine = [e for e in events if any(w in e.key for w in words)]
+        us = sum(e.self_device_time_total for e in mine)
+        n = sum(e.count for e in mine)
         pct = 100 * us / max(total_us, 1)
         return f"{us / 1e3:.2f} ms, {n} calls ({pct:.1f}%)"
 
@@ -56,9 +57,9 @@ def profile_request(pipe, req, name, card):
           f"{total_us / 1e6:.4f} s ({100 * total_us / 1e6 / wall:.1f}% of "
           f"this profiled wall), {sum(e.count for e in events)} device "
           f"kernels; rel-pos attention kernel "
-          f"{share('rel_pos_weights_kernel')}, fused weights + "
-          f"NonlinAttention kernel {share('nonlin_')}, application kernel "
-          f"{share('attn_apply')}, conv kernel "
+          f"{share('rel_pos_mma_kernel', 'rel_pos_weights_kernel')}, fused "
+          f"weights + NonlinAttention kernel {share('nonlin_')}, application "
+          f"kernel {share('attn_apply')}, conv kernel "
           f"{share('dwconv_kernel')}, PyTorch depthwise conv "
           f"{share('depthwise')} [{card}]", flush=True)
     print("top device kernels (self device time):")

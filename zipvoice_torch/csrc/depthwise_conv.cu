@@ -15,14 +15,34 @@
 // output is rounded once to the input dtype; dw and db are f32 sums rounded once to
 // the weight's dtype, as the JAX package returns them.
 //
-// What bounds it: bytes.  At the main path's largest call (B=16, T=1280, C=512,
-// K=31, bf16) the forward moves 42 MB against 0.33 G multiply-adds, about 12.5 us at
-// 3.35 TB/s.  A block owns a tile of kTileRows time rows by kTileChannels channels:
-// it stages the tile and its K-1 halo rows in shared memory (zero-filled past the
-// sequence ends: the SAME padding costs no copy of the input), and each thread slides
-// a register window of kRowsPerThread + K - 1 inputs over its channel, so a staged
-// value is read from shared memory about (kRowsPerThread + K - 1) / kRowsPerThread
-// times instead of K times.
+// What bounds the tap loop (the forward, and dv): bytes, with the multiply-adds
+// close behind.  At the main path's largest call (B=16, T=1280, C=512, K=31, bf16)
+// the forward moves 42 MB, about 12.5 us at 3.35 TB/s, and does 325 M f32
+// multiply-adds, about 10 us at the f32 CUDA-core rate: the loop has to keep bytes
+// flowing and the FMA stream dense at once.  The design (dwconv_kernel):
+// - A block owns 64 channels of one sequence and walks down time over a run of
+//   64-row tiles.  The input streams through a ring of four 64-row chunks in
+//   shared memory, in the input dtype, filled by 16-byte cp.async two chunks ahead
+//   of the tile being computed, so each tile's copy overlaps earlier tiles' taps.
+//   A tile reads its own chunk and the next chunk's first K - 1 rows: the halo is
+//   kept, not fetched again, and only the rows at the ends of a block's run are
+//   read twice (by the neighbouring blocks).  SAME padding is the copy's zero fill.
+// - The ring's first K - 1 rows are mirrored past its end, so a thread's window of
+//   rows is contiguous in shared memory and every load has a constant offset.
+// - A thread owns a channel pair (a bf16x2 or float2 load, a warp reading one
+//   128- or 256-byte row segment without bank conflicts) and 8 output rows; it
+//   keeps the pair's filter (2K floats) and 16 sums in registers and walks its
+//   8 + K - 1 input rows once, adding each row into every sum it reaches: K f32
+//   FMAs per output, in tap order, for 1 + (K - 1) / 8 row loads per output row.
+// - Stores are 4-byte bf16x2 (8-byte float2) per lane: a warp writes 128 (256)
+//   contiguous bytes a row.
+// - Ragged C is masked (a C that is no multiple of 16 bytes is copied element by
+//   element, an odd C stored element by element); ragged T, and T < K, are the
+//   zero fill and masked stores.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) that shape takes about 2.6x
+// its byte bound, and what is left is the taps' instruction stream (f32 FMAs, the
+// bf16 pairs' unpacking, the loads) more than the copies: the next step is the
+// tensor cores.
 //
 // The TPU backward accumulates dw and db in an output block revisited by a
 // sequential grid.  Here blocks run in no order, so each block of the dw pass sums
@@ -34,14 +54,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+// the dw pass
 constexpr int kThreads = 256;
 constexpr int kTileChannels = 64;                        // threadIdx.x % 64
 constexpr int kRowGroups = kThreads / kTileChannels;     // threadIdx.x / 64
 constexpr int kRowsPerThread = 16;
 constexpr int kTileRows = kRowGroups * kRowsPerThread;   // 64
 constexpr int kTargetBlocks = 264;                       // two per SM for the dw pass
+
+// the tap loop (forward and dv)
+constexpr int kTapWarps = 8;
+constexpr int kTapThreads = kTapWarps * 32;
+constexpr int kTapChannels = 64;                  // a channel pair per lane
+constexpr int kTapRows = 8;                       // output rows per thread and tile
+constexpr int kTileT = kTapWarps * kTapRows;      // 64 rows a tile (and a chunk)
+constexpr int kRingRows = 4 * kTileT;             // the ring: four chunks
+constexpr int kTargetTapBlocks = 528;             // two waves of two blocks an SM
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -50,6 +82,20 @@ template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// a channel pair from shared memory, and stored packed to device memory
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return zv::unpack_bf16(*reinterpret_cast<const unsigned*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<unsigned*>(p) = zv::pack_bf16(a, b);
 }
 
 // Rows [t_lo, t_lo + rows) of x (one sequence, (seq, C)) and channels
@@ -64,50 +110,136 @@ __device__ __forceinline__ void stage(const T* __restrict__ x, float* __restrict
   }
 }
 
+template <typename T, int K> constexpr int tap_smem_bytes() {
+  return (kRingRows + K - 1) * kTapChannels * (int)sizeof(T) + K * kTapChannels * 4;
+}
+
 // The tap loop.  kFlip = false: the forward, out = conv(x, w) + bias.
 // kFlip = true: dv = conv(g, flipped w), no bias.
-// grid = (ceil(C / 64), ceil(seq / 64), B); block = kThreads.
+// grid = (ceil(C / kTapChannels), ceil(ceil(seq / kTileT) / tiles), B); block =
+// kTapThreads; tap_smem_bytes<T, K>() of dynamic shared memory.  Block (x, y, z)
+// computes channels [kTapChannels x, + kTapChannels) of sequence z at the rows of
+// tiles [tiles y, tiles (y + 1)).
 template <typename T, int K, bool kFlip>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTapThreads, 2)
 dwconv_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-              T* __restrict__ out, int seq, int C) {
+              T* __restrict__ out, int seq, int C, int tiles) {
   constexpr int kPad = K / 2;
-  constexpr int kWin = kRowsPerThread + K - 1;
-  __shared__ float x_s[(kTileRows + K - 1) * kTileChannels];
-  __shared__ float w_s[K * kTileChannels];
+  constexpr int kRowElems = kTapChannels;
+  constexpr int kElems = 16 / (int)sizeof(T);     // channels a 16-byte chunk
+  constexpr int kChunks = kRowElems / kElems;     // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_c[];
+  T* ring = reinterpret_cast<T*>(smem_c);         // [kRingRows + K - 1][kRowElems]
+  float* w_s = reinterpret_cast<float*>(ring + (kRingRows + K - 1) * kRowElems);  // [K][64]
 
-  const int c0 = blockIdx.x * kTileChannels;
-  const int t0 = blockIdx.y * kTileRows;
-  const int b = blockIdx.z;
-  const int cx = threadIdx.x % kTileChannels;
-  const int r0 = (threadIdx.x / kTileChannels) * kRowsPerThread;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c0 = blockIdx.x * kTapChannels;
+  const int tb = blockIdx.y * tiles * kTileT;     // the run's first output row
+  const int ntiles = min(tiles, (seq - tb + kTileT - 1) / kTileT);
+  const T* xb = x + (size_t)blockIdx.z * seq * C;
+  T* ob = out + (size_t)blockIdx.z * seq * C;
+  const bool vec = C % kElems == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
-  stage(x + (size_t)b * seq * C, x_s, t0 - kPad, kTileRows + K - 1, c0, seq, C);
-  for (int i = threadIdx.x; i < K * kTileChannels; i += kThreads) {
-    const int j = i / kTileChannels;
-    const int c = c0 + i % kTileChannels;
+  // Chunk m: input rows [tb - kPad + m kTileT, + kTileT) into ring rows
+  // [(m % 4) kTileT, + kTileT), the first K - 1 of chunk 0 (mod 4) also past the
+  // ring's end; the last chunk (m = ntiles) only its first K - 1 rows, the last
+  // tile's right halo.
+  auto load_chunk = [&](int m) {
+    const int t_lo = tb - kPad + m * kTileT;
+    const int rows = m < ntiles ? kTileT : K - 1;
+    for (int i = tid; i < rows * kChunks; i += kTapThreads) {
+      const int r = i / kChunks, ch = i - r * kChunks;
+      const int t = t_lo + r;
+      const int c = c0 + ch * kElems;
+      const int slot = (m & 3) * kTileT + r;
+      T* dst = ring + slot * kRowElems + ch * kElems;
+      const bool mirror = slot < K - 1;
+      if (vec) {
+        const bool ok = t >= 0 && t < seq && c < C;
+        const T* src = xb + (ok ? (size_t)t * C + c : 0);
+        zv::cp_async16(zv::smem_addr(dst), src, ok);
+        if (mirror) zv::cp_async16(zv::smem_addr(dst + kRingRows * kRowElems), src, ok);
+      } else {
+        for (int e = 0; e < kElems; ++e) {
+          const T v = t >= 0 && t < seq && c + e < C ? xb[(size_t)t * C + c + e]
+                                                     : from_float<T>(0.f);
+          dst[e] = v;
+          if (mirror) dst[kRingRows * kRowElems + e] = v;
+        }
+      }
+    }
+  };
+
+  for (int i = tid; i < K * kTapChannels; i += kTapThreads) {
+    const int j = i / kTapChannels;
+    const int c = c0 + i % kTapChannels;
     w_s[i] = c < C ? to_float(w[(size_t)c * K + (kFlip ? K - 1 - j : j)]) : 0.f;
   }
-  __syncthreads();
-
-  const int c = c0 + cx;
-  if (c >= C) return;
-  float wr[K];
+  const int nchunks = ntiles + 1;
 #pragma unroll
-  for (int j = 0; j < K; ++j) wr[j] = w_s[j * kTileChannels + cx];
-  float win[kWin];
-#pragma unroll
-  for (int i = 0; i < kWin; ++i) win[i] = x_s[(r0 + i) * kTileChannels + cx];
-  const float bv = kFlip ? 0.f : to_float(bias[c]);
-  T* ob = out + (size_t)b * seq * C + c;
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    float acc = 0.f;
-#pragma unroll
-    for (int j = 0; j < K; ++j) acc = fmaf(win[r + j], wr[j], acc);
-    const int t = t0 + r0 + r;
-    if (t < seq) ob[(size_t)t * C] = from_float<T>(acc + bv);
+  for (int m = 0; m < 3; ++m) {
+    if (m < nchunks) load_chunk(m);
+    zv::cp_async_commit();
   }
+  __syncthreads();  // w_s is written
+
+  const int c = c0 + 2 * lane;  // this thread's channel pair
+  float wr[K][2];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const float2 v = *reinterpret_cast<const float2*>(w_s + j * kTapChannels + 2 * lane);
+    wr[j][0] = v.x;
+    wr[j][1] = v.y;
+  }
+  float b0 = 0.f, b1 = 0.f;
+  if constexpr (!kFlip) {
+    if (c < C) b0 = to_float(bias[c]);
+    if (c + 1 < C) b1 = to_float(bias[c + 1]);
+  }
+  // (t C + c) is even for an even C: the pair is one aligned store
+  const bool packed = C % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0;
+  const int r0 = warp * kTapRows;
+
+  for (int n = 0; n < ntiles; ++n) {
+    zv::cp_async_wait<1>();  // chunks n and n + 1 have landed (this thread's copies)
+    __syncthreads();         // ... everyone's; everyone is done with tile n - 1
+    if (n + 3 < nchunks) load_chunk(n + 3);  // into tile n - 1's chunk
+    zv::cp_async_commit();
+    // output row r0 + r of the tile reads window rows r .. r + K - 1
+    const T* win = ring + ((n & 3) * kTileT + r0) * kRowElems + 2 * lane;
+    float acc[kTapRows][2];
+#pragma unroll
+    for (int r = 0; r < kTapRows; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kTapRows + K - 1; ++u) {
+      const float2 v = load_pair(win + u * kRowElems);
+#pragma unroll
+      for (int r = 0; r < kTapRows; ++r) {
+        const int j = u - r;  // the tap this row is to output r0 + r
+        if (j >= 0 && j < K) {
+          acc[r][0] = fmaf(v.x, wr[j][0], acc[r][0]);
+          acc[r][1] = fmaf(v.y, wr[j][1], acc[r][1]);
+        }
+      }
+    }
+    if (c >= C) continue;
+    const int t0 = tb + n * kTileT + r0;
+#pragma unroll
+    for (int r = 0; r < kTapRows; ++r) {
+      const int t = t0 + r;
+      if (t >= seq) break;
+      T* dst = ob + (size_t)t * C + c;
+      if (packed && c + 1 < C) {
+        store_pair(dst, acc[r][0] + b0, acc[r][1] + b1);
+      } else {
+        dst[0] = from_float<T>(acc[r][0] + b0);
+        if (c + 1 < C) dst[1] = from_float<T>(acc[r][1] + b1);
+      }
+    }
+  }
+  zv::cp_async_wait<0>();
 }
 
 // Number of dw partials: enough blocks to fill the card, at most one per tile.
@@ -198,25 +330,38 @@ __global__ void dwconv_fold_kernel(const float* __restrict__ partial, int P, int
     db[c] = from_float<T>(s);
 }
 
-dim3 tap_grid(int B, int seq, int C) {
-  return dim3((C + kTileChannels - 1) / kTileChannels, (seq + kTileRows - 1) / kTileRows, B);
+// The tap loop's grid and each block's run of tiles: enough blocks to fill the
+// card, the fewest tiles a block that gives them.
+dim3 tap_grid(int B, int seq, int C, int* tiles) {
+  const int total = (seq + kTileT - 1) / kTileT;
+  const int slices = (C + kTapChannels - 1) / kTapChannels;
+  const int pairs = B * slices;
+  int splits = (kTargetTapBlocks + pairs - 1) / pairs;
+  splits = splits < 1 ? 1 : splits > total ? total : splits;
+  *tiles = (total + splits - 1) / splits;
+  return dim3(slices, (total + *tiles - 1) / *tiles, B);
 }
 
-template <typename T, int K>
-cudaError_t forward(const void* x, const void* w, const void* bias, void* out, int B, int seq,
-                    int C, cudaStream_t stream) {
-  dwconv_kernel<T, K, false><<<tap_grid(B, seq, C), kThreads, 0, stream>>>(
+template <typename T, int K, bool kFlip>
+cudaError_t taps(const void* x, const void* w, const void* bias, void* out, int B, int seq,
+                 int C, cudaStream_t stream) {
+  constexpr int smem = tap_smem_bytes<T, K>();
+  auto kernel = dwconv_kernel<T, K, kFlip>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int tiles;
+  const dim3 grid = tap_grid(B, seq, C, &tiles);
+  kernel<<<grid, kTapThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
-      static_cast<T*>(out), seq, C);
+      static_cast<T*>(out), seq, C, tiles);
   return cudaGetLastError();
 }
 
 template <typename T, int K>
 cudaError_t backward(const void* x, const void* g, const void* w, void* dv, void* dw, void* db,
                      float* partial, int B, int seq, int C, cudaStream_t stream) {
-  dwconv_kernel<T, K, true><<<tap_grid(B, seq, C), kThreads, 0, stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(w), nullptr, static_cast<T*>(dv), seq, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = taps<T, K, true>(g, w, nullptr, dv, B, seq, C, stream);
   if (err != cudaSuccess) return err;
   const int P = dw_partials(B, seq, C);
   dwconv_dw_kernel<T, K><<<dim3((C + kTileChannels - 1) / kTileChannels, P), kThreads, 0,
@@ -240,7 +385,7 @@ cudaError_t forward_k(int k, const void* x, const void* w, const void* bias, voi
                       int seq, int C, cudaStream_t s) {
   switch (k) {
 #define ZV_CASE(K) \
-  case K: return forward<T, K>(x, w, bias, out, B, seq, C, s);
+  case K: return taps<T, K, false>(x, w, bias, out, B, seq, C, s);
     ZV_DWCONV_SIZES(ZV_CASE)
 #undef ZV_CASE
     default: return cudaErrorInvalidValue;

@@ -12,29 +12,44 @@
 // What bounds it: the (B, h, T, T) write.  At the main path's shape (B=16
 // after CFG doubling, h=4, T=1280, bf16) that is 210 MB against ~11 MB of reads
 // and ~8 GFLOP, so on an H100 the floor is the memory rate (about 66 us at
-// 3.35 TB/s).  The design therefore keeps every intermediate out of device
-// memory: a block owns kRows query rows of one (b, h), computes their full score
-// rows into shared memory, normalises them there and writes each weight exactly
-// once.  The TPU kernel's strided roll for the rel->abs skew is only an index
-// here: key j of row i reads positional row j - i + T - 1 from a window of the
-// pe table staged in shared memory for each chunk of keys.
+// 3.35 TB/s).  Between the floor and a kernel stand the q.k products (3.4 G
+// multiply-adds at that shape, about 0.1 ms on the f32 CUDA cores alone), the
+// exp of every score, and the bytes a block re-reads.
 //
-// Ragged T is masked (no tile-multiple rule).  This first version does the dot
-// products on the CUDA cores in f32; tensor cores (wgmma) and TMA are later work.
+// Three builds:
+// - bf16 inference (rel_pos_mma_kernel): the two sweeps of rel_pos_sweeps.cuh, the
+//   same code as the fused weights + NonlinAttention kernel's
+//   (rel_pos_attention_nonlin.cu) without its na phase.  A block owns 64 query rows
+//   (k is read T/64 times a sequence from L2, not T/8), q.k^T runs on the tensor
+//   cores, 128-key chunks stream through a cp.async ring, no score row is held (an
+//   online max and sum in sweep 1, the scores recomputed in sweep 2 and each weight
+//   rounded once), and each warp stores its weights as 16-byte coalesced stores.
+//   Its shared memory is a fixed ring plus 4 bytes a key, so T is not bounded by a
+//   score row.  On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) it takes about
+//   3.6x its byte bound at the main path's shape: like the fused kernel it is bound
+//   by latency (a barrier per chunk, a dependent chain per score) and by two exps a
+//   score (sweep 1's sum, sweep 2's weight).
+// - f32 inference and the training build in both dtypes (rel_pos_weights_kernel):
+//   the CUDA cores in f32, where TF32 would cost precision.  A block owns kRows
+//   query rows of one (b, h), computes their full score rows into shared memory,
+//   normalises them there and writes each weight exactly once.  The TPU kernel's
+//   strided roll for the rel->abs skew is only an index here: key j of row i reads
+//   positional row j - i + T - 1 from a window of the pe table staged in shared
+//   memory for each chunk of keys.
+// - The training build (kBlockMax = true) replaces
+//   zipvoice_tpu/ops/pallas_attention.py::_attn_weights_train_kernel: the same
+//   weights, and each block also writes the largest |pre-mask score| of its rows
+//   to block_max[(b, h), row tile], from which the wrapper takes one amax.  The
+//   backward uses it to skip the score penalty when no |score| exceeds its limit.
 //
-// The training build (kBlockMax = true) replaces
-// zipvoice_tpu/ops/pallas_attention.py::_attn_weights_train_kernel: the same
-// weights, and each block also writes the largest |pre-mask score| of its rows
-// to block_max[(b, h), row tile], from which the wrapper takes one amax.  The
-// backward uses it to skip the score penalty when no |score| exceeds its limit.
-// It adds one register-resident max per key and one block reduction, nothing
-// to the bytes; the inference build (kBlockMax = false) compiles to the code it
-// had before the training build existed.
+// Ragged T is masked in every build (no tile-multiple rule).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "rel_pos_sweeps.cuh"
 
 namespace {
 
@@ -209,22 +224,71 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 inference build.  grid = (ceil(T / zv::kRowsN), B * H), blockIdx.y =
+// b * H + h, so that the blocks of one (b, h) run together and share k from L2;
+// block = zv::kThreadsN.  Arguments as rel_pos_weights_kernel's, all bf16 but the mask.
+template <int QD>
+__global__ void __launch_bounds__(zv::kThreadsN, 2)
+rel_pos_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__ pe,
+                   const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, int H,
+                   int seq) {
+  extern __shared__ __align__(128) unsigned char smem_w[];
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y - b * H;
+  zv::rel_pos_sweeps<QD>(q, k, p, pe, mask, out, smem_w,
+                         smem_w + zv::SweepShape<QD>::kSweepRingBytes, b, h, H,
+                         blockIdx.x * zv::kRowsN, seq);
+}
+
+long long mma_smem_bytes(int qd, int seq) {
+  const int ring = qd == 8 ? zv::SweepShape<8>::kSweepRingBytes
+                           : zv::SweepShape<32>::kSweepRingBytes;
+  return (long long)ring + zv::sweep_tail_bytes(seq);
+}
+
+long long cuda_core_smem_bytes(int qd, int seq) {
+  return (long long)sizeof(float) *
+         ((long long)kRows * qd + kRows * kPD + kWindow * kPD + (long long)kRows * seq);
+}
+
+template <int QD>
+cudaError_t launch_mma(const void* q, const void* k, const void* p, const void* pe,
+                       const void* mask, void* out, int B, int H, int seq,
+                       cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int smem = (int)mma_smem_bytes(QD, seq);
+  auto kernel = rel_pos_mma_kernel<QD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + zv::kRowsN - 1) / zv::kRowsN, B * H);
+  kernel<<<grid, zv::kThreadsN, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(p),
+      static_cast<const bf16*>(pe), static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      H, seq);
+  return cudaGetLastError();
+}
+
 template <typename T, int QD, bool kBlockMax>
 cudaError_t launch(const void* q, const void* k, const void* p, const void* pe,
                    const void* mask, void* out, float* block_max, int B, int H, int seq,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kRows * QD + kRows * kPD + kWindow * kPD + (size_t)kRows * seq);
-  auto kernel = rel_pos_weights_kernel<T, QD, kBlockMax>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kRows - 1) / kRows, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
-      static_cast<const T*>(pe), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-      block_max, H, seq);
-  return cudaGetLastError();
+  if constexpr (!kBlockMax && sizeof(T) == 2) {  // the bf16 inference build
+    return launch_mma<QD>(q, k, p, pe, mask, out, B, H, seq, stream);
+  } else {
+    const size_t smem = cuda_core_smem_bytes(QD, seq);
+    auto kernel = rel_pos_weights_kernel<T, QD, kBlockMax>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((seq + kRows - 1) / kRows, B * H);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
+        static_cast<const T*>(pe), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
+        block_max, H, seq);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, bool kBlockMax>
@@ -258,15 +322,16 @@ int dispatch(int dtype, int qd, const void* q, const void* k, const void* p, con
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); launches on `stream` and does not synchronise.
+// dtype: 0 = float32 (the CUDA-core build), 1 = bfloat16 (the tensor-core build).
+// Returns cudaGetLastError() after the launch (0 on success); launches on `stream`
+// and does not synchronise.
 extern "C" int zv_rel_pos_attention_weights(int dtype, int qd, const void* q, const void* k,
                                             const void* p, const void* pe, const void* mask,
                                             void* out, int B, int H, int seq, void* stream) {
   return dispatch<false>(dtype, qd, q, k, p, pe, mask, out, nullptr, B, H, seq, stream);
 }
 
-// The training build: as above, and block_max ((B * H, ceil(seq / kRows)) f32)
+// The training build (CUDA cores in both dtypes): as above, and block_max ((B * H, ceil(seq / kRows)) f32)
 // receives each block's largest |pre-mask score|.
 extern "C" int zv_rel_pos_attention_weights_train(int dtype, int qd, const void* q,
                                                   const void* k, const void* p, const void* pe,
@@ -276,12 +341,12 @@ extern "C" int zv_rel_pos_attention_weights_train(int dtype, int qd, const void*
                         H, seq, stream);
 }
 
-// Query rows per block: the width of block_max's second axis is ceil(seq / this).
+// Query rows per block of the training build: the width of block_max's second
+// axis is ceil(seq / this).
 extern "C" int zv_rel_pos_attention_rows_per_block() { return kRows; }
 
-// Dynamic shared memory one block needs; the wrapper checks it against the
-// card's limit before launching.
-extern "C" long long zv_rel_pos_attention_smem_bytes(int qd, int seq) {
-  return (long long)sizeof(float) *
-         ((long long)kRows * qd + kRows * kPD + kWindow * kPD + (long long)kRows * seq);
+// Dynamic shared memory one block of the build that (dtype, train) selects needs
+// at (qd, seq); the wrapper checks it against the card's limit before launching.
+extern "C" long long zv_rel_pos_attention_smem_bytes(int dtype, int train, int qd, int seq) {
+  return dtype == 1 && !train ? mma_smem_bytes(qd, seq) : cuda_core_smem_bytes(qd, seq);
 }

@@ -21,9 +21,12 @@ counts its launches in ``<wrapper>.launches``:
 The first two are builds of ``zipvoice_torch/csrc/rel_pos_attention.cu``,
 the third is ``zipvoice_torch/csrc/rel_pos_attention_bwd.cu``, the fourth
 ``zipvoice_torch/csrc/rel_pos_attention_nonlin.cu`` and the fifth
-``zipvoice_torch/csrc/attention_apply.cu`` (the last two: a tensor-core
-build for bf16, a CUDA-core build for f32); each source's header says what
-bounds it on an H100 and how its design answers that.
+``zipvoice_torch/csrc/attention_apply.cu``.  The inference weights, the
+fused kernel and the application kernel have a tensor-core build for bf16
+and a CUDA-core build for f32; the inference and fused kernels' bf16
+builds run one copy of the weights code (``csrc/rel_pos_sweeps.cuh``).
+Each source's header says what bounds it on an H100 and how its design
+answers that.
 ``rel_pos_attention_weights_trainable`` joins the training pair in a
 ``torch.autograd.Function``.
 """
@@ -168,7 +171,7 @@ def _kernel():
     ]
     train.restype = ctypes.c_int
     smem = lib.zv_rel_pos_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 2
+    smem.argtypes = [ctypes.c_int] * 4
     smem.restype = ctypes.c_longlong
     rows = lib.zv_rel_pos_attention_rows_per_block
     rows.argtypes = []
@@ -276,14 +279,17 @@ def rel_pos_attention_weights(
 ) -> torch.Tensor:
     """softmax_j(q_i.k_j + p_i.pe[j-i+T-1]; masked keys -> -1000), shape
     (B, h, T, T) in q's dtype.  CUDA tensors (f32 or bf16, contiguous) run
-    the hand-written kernel; CPU tensors run the plain version."""
+    the hand-written kernel (bf16 on the tensor cores); CPU tensors run the
+    plain version."""
     if q.device.type == "cpu":
         return rel_pos_attention_weights_ref(q, k, p, pe, key_padding_mask)
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
+    if q.dtype == torch.bfloat16 and (p.data_ptr() % 8 or pe.data_ptr() % 8):
+        raise ValueError("p and pe must be 8-byte aligned")
     B, h, T, qd = q.shape
     fn, _, smem_bytes, _ = _kernel()
-    if smem_bytes(qd, T) > _MAX_SMEM:
+    if smem_bytes(DTYPE_CODES[q.dtype], 0, qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -313,7 +319,7 @@ def rel_pos_attention_weights_train(q, k, p, pe, key_padding_mask):
     _check(q, k, p, pe, key_padding_mask)
     B, h, T, qd = q.shape
     _, fn, smem_bytes, rows = _kernel()
-    if smem_bytes(qd, T) > _MAX_SMEM:
+    if smem_bytes(DTYPE_CODES[q.dtype], 1, qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     block_max = torch.empty((B * h, (T + rows - 1) // rows),
