@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with an H100 (the CUDA kernels
 are built for sm_90a).  Phases, each of which must pass:
 
 1. build every CUDA kernel of the port from ``zipvoice_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and print the ptxas report;
+   ``nvcc`` per source, all at once) and print the ptxas report and each
+   kernel's tensor-core instructions in its SASS (``cuobjdump``);
 2. hold the inference weights kernel against its plain PyTorch version
    on the card at B=16, h=4, T in {320, 640, 1280, 2560}, element by
    element, in bf16 (one rounding apart) and in f32 (2e-6), and time the
@@ -26,7 +27,8 @@ are built for sm_90a).  Phases, each of which must pass:
    2560} with padded keys, the score penalty off and on, in bf16 and f32:
    weights element by element as in phase 2, the largest |score| to 1e-6
    of itself, dq/dk/dp/dpe to 1e-4 of each tensor's largest |value|; and
-   time both kernels and their plain versions;
+   time both kernels and their plain versions at T=640 and 1280 (the
+   training step's two levels);
 6. take 6 ScaledAdam steps (Eden, clipping, schedules and scheduled
    dropout on) of the ZipVoice base at full width, f32 parameters and bf16
    compute, B=8, T=1280, S=128: finite losses and gradient norms, moved
@@ -129,9 +131,9 @@ def bound(bytes_moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# query rows per block of the weights kernels (rel_pos_attention.cu, kRows):
-# the training build writes one f32 |score| maximum per block
-ROWS_PER_BLOCK = 8
+# query rows per block of the bf16 weights kernels (rel_pos_sweeps.cuh,
+# kRowsN): the training build writes one f32 |score| maximum per block
+ROWS_PER_BLOCK = 64
 
 
 def attention_traffic(B, h, T, qd, pd, train=False):
@@ -471,7 +473,8 @@ def bwd_traffic(B, h, T, qd, pd, itemsize, penalty):
 
 def phase_train_kernels(card, seed):
     """The training pair against its plain versions at the training
-    shapes, both dtypes, the penalty off and on; times at T=1280."""
+    shapes, both dtypes, the penalty off and on; times at T=640 and 1280
+    (the step's two levels; the entries keep T=1280, the top level)."""
     import torch
 
     from zipvoice_torch.kernels.rel_pos_attention import (
@@ -537,7 +540,8 @@ def phase_train_kernels(card, seed):
                 for e, m in errs:
                     if not e <= BWD_RTOL * m:
                         raise AssertionError(f"backward disagrees: {tag}")
-                if T == 1280 and dtype == torch.bfloat16 and not penalty:
+                if (T in (640, 1280) and dtype == torch.bfloat16
+                        and not penalty):
                     ms = cuda_ms(lambda: rel_pos_attention_weights_train(
                         *args), iters=20)
                     plain_ms = cuda_ms(
@@ -545,9 +549,6 @@ def phase_train_kernels(card, seed):
                         iters=5)
                     b_ms, b_by = bound(*attention_traffic(
                         B, h, T, qd, pd, train=True))
-                    entries["rel_pos_attention_weights_train"] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by)
                     bms = cuda_ms(lambda: rel_pos_attention_weights_bwd(
                         q, k, p, pe, g, w, coin), iters=20)
                     bplain = cuda_ms(
@@ -555,9 +556,13 @@ def phase_train_kernels(card, seed):
                             q, k, p, pe, g, w, coin), iters=5)
                     bb_ms, bb_by = bound(*bwd_traffic(B, h, T, qd, pd, 2,
                                                       False))
-                    entries["rel_pos_attention_weights_bwd"] = dict(
-                        ms=bms, plain_ms=bplain, bound_ms=bb_ms,
-                        bound_by=bb_by)
+                    if T == 1280:
+                        entries["rel_pos_attention_weights_train"] = dict(
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+                        entries["rel_pos_attention_weights_bwd"] = dict(
+                            ms=bms, plain_ms=bplain, bound_ms=bb_ms,
+                            bound_by=bb_by)
                     print(f"timed B={B} h={h} T={T} bf16 [{card}]: train "
                           f"forward {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                           f"bound {b_ms:.4f} ms, {b_by}); backward "
@@ -1026,6 +1031,34 @@ def phase_config_train(card, seed, batch, f32_model, f32_pair_run):
     return launches
 
 
+def print_tensor_core_use(names):
+    """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
+    warp's matrix transpose) in its SASS, from ``cuobjdump``."""
+    import subprocess
+
+    from zipvoice_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in names:
+        sass = subprocess.run([tool, "-sass", _build.library_path(name)],
+                              capture_output=True, text=True, check=True)
+        counts = {}
+        fn = None
+        for line in sass.stdout.splitlines():
+            found = re.search(
+                r"Function : \S*?_cu_[0-9a-f]{8}(\d+)(\w+)", line)
+            if found:
+                n, rest = int(found.group(1)), found.group(2)
+                fn = rest[:n] + "<" + rest[n:].split("Ev", 1)[0] + ">"
+                counts[fn] = [0, 0]
+            elif fn is not None:
+                counts[fn][0] += " HMMA." in line
+                counts[fn][1] += " MOVM." in line
+        print(f"  {name} SASS: " + "; ".join(
+            f"{fn} HMMA {h}" + (f" MOVM {m}" if m else "")
+            for fn, (h, m) in counts.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1067,6 +1100,7 @@ def main(argv=None) -> int:
                 print(f"  {name}: {entry}: {line.split(':', 1)[1].strip()}")
             elif "spill" in line:
                 print(f"  {name}: {entry}: {line.strip()}")
+    print_tensor_core_use(names)
 
     measured = phase_kernels(card, args.seed)
     vocos, req, bf16_out, launches = phase_main_path(card, args.seed,
@@ -1099,33 +1133,44 @@ def main(argv=None) -> int:
         "depthwise_conv1d": config_launches["depthwise_conv1d"],
         "depthwise_conv1d_bwd": config_train["depthwise_conv1d_bwd"],
     }
+    # (source, TPU kernel, the device kernels of the bf16 build the path runs)
     sources = {
         "rel_pos_attention_weights": (
             "zipvoice_torch/csrc/rel_pos_attention.cu",
-            "zipvoice_tpu/ops/pallas_attention.py:103"),
+            "zipvoice_tpu/ops/pallas_attention.py:103",
+            ["rel_pos_mma_kernel<32, false>"]),
         "rel_pos_attention_weights_nonlin": (
             "zipvoice_torch/csrc/rel_pos_attention_nonlin.cu",
-            "zipvoice_tpu/ops/pallas_attention.py:240"),
+            "zipvoice_tpu/ops/pallas_attention.py:240",
+            ["nonlin_mma_kernel<32, 384>"]),
         "attention_apply": (
             "zipvoice_torch/csrc/attention_apply.cu",
-            "zipvoice_tpu/ops/pallas_attention.py:363"),
+            "zipvoice_tpu/ops/pallas_attention.py:363",
+            ["attn_apply_mma_kernel"]),
         "rel_pos_attention_weights_train": (
             "zipvoice_torch/csrc/rel_pos_attention.cu",
-            "zipvoice_tpu/ops/pallas_attention.py:423"),
+            "zipvoice_tpu/ops/pallas_attention.py:423",
+            ["rel_pos_mma_kernel<32, true>"]),
         "rel_pos_attention_weights_bwd": (
             "zipvoice_torch/csrc/rel_pos_attention_bwd.cu",
-            "zipvoice_tpu/ops/pallas_attention.py:519"),
+            "zipvoice_tpu/ops/pallas_attention.py:519",
+            ["bwd_rows_mma_kernel<32>", "bwd_keys_mma_kernel<32>",
+             "bwd_fold_mma_kernel"]),
         "depthwise_conv1d": (
             "zipvoice_torch/csrc/depthwise_conv.cu",
-            "zipvoice_tpu/ops/pallas_conv.py:26"),
+            "zipvoice_tpu/ops/pallas_conv.py:26",
+            ["dwconv_kernel<bf16, K, false>"]),
         "depthwise_conv1d_bwd": (
             "zipvoice_torch/csrc/depthwise_conv.cu",
-            "zipvoice_tpu/ops/pallas_conv.py:41"),
+            "zipvoice_tpu/ops/pallas_conv.py:41",
+            ["dwconv_kernel<bf16, K, true>", "dwconv_dw_kernel<bf16, K>",
+             "dwconv_fold_kernel"]),
     }
     kernels = [dict(
         name=name, route="cuda", source=src, replaces=tpu,
-        launches=launches[name], **{"library_ms": None, **measured[name]},
-    ) for name, (src, tpu) in sources.items()]
+        device_kernels=device, launches=launches[name],
+        **{"library_ms": None, **measured[name]},
+    ) for name, (src, tpu, device) in sources.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

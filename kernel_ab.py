@@ -12,8 +12,8 @@ process times every kernel wrapper at the main path's shapes (CUDA events,
 bf16, the wrappers' public signatures, which both checkouts share): the
 inference weights (#1) at B=16, h=4, T in {320, 640, 1280, 2560}, the fused
 weights + NonlinAttention kernel (#2) and the application kernel (#3) at
-T in {640, 1280}, the training pair (#4, #5) at B=8, T=1280, and the
-depthwise conv (#6 at B=16, #7 at B=8) at every level of the main path.
+T in {640, 1280}, the training pair (#4, #5) at B=8, T in {640, 1280}, and
+the depthwise conv (#6 at B=16, #7 at B=8) at every level of the main path.
 Prints, for each kernel and checkout, the middle of its sorted times (the
 upper middle for an even count), with the card's name and power limit; no
 result without a card.
@@ -72,16 +72,18 @@ def time_checkout(repo, seed):
             del nv, w, v
         del args
         torch.cuda.empty_cache()
-    q, k, p, pe, mask = attention_args(8, 1280)
-    out["#4 train B=8 T=1280"] = timed(
-        lambda: ra.rel_pos_attention_weights_train(q, k, p, pe, mask))
-    w, _ = ra.rel_pos_attention_weights_train(q, k, p, pe, mask)
-    gw = randn(*w.shape)
-    coin = torch.zeros((), device="cuda")
-    out["#5 bwd B=8 T=1280"] = timed(
-        lambda: ra.rel_pos_attention_weights_bwd(q, k, p, pe, gw, w, coin))
-    del q, k, p, pe, mask, w, gw
-    torch.cuda.empty_cache()
+    for T in (640, 1280):
+        q, k, p, pe, mask = attention_args(8, T)
+        out[f"#4 train B=8 T={T}"] = timed(
+            lambda: ra.rel_pos_attention_weights_train(q, k, p, pe, mask))
+        w, _ = ra.rel_pos_attention_weights_train(q, k, p, pe, mask)
+        gw = randn(*w.shape)
+        coin = torch.zeros((), device="cuda")
+        out[f"#5 bwd B=8 T={T}"] = timed(
+            lambda: ra.rel_pos_attention_weights_bwd(q, k, p, pe, gw, w,
+                                                     coin))
+        del q, k, p, pe, mask, w, gw
+        torch.cuda.empty_cache()
     for C, T, kk in CONV_LEVELS:
         lim = kk ** -0.5
         wt = ((2 * torch.rand(C, kk, generator=g, device="cuda") - 1)

@@ -5,7 +5,8 @@
 
 For every function of the JAX package that reaches ``pl.pallas_call``, at
 every shape its path gives it (the main path's levels: the attention
-kernels at T and T/2, the conv at T, T/2, T/4 and in the text encoder),
+kernels at T and T/2, the training pair at B=8 too, the conv at T, T/2,
+T/4 and in the text encoder),
 prints the bytes it must move (each input read once, each output written
 once) and its operations, and the bound: the
 larger of bytes over the HBM rate and operations over the bf16 tensor rate
@@ -47,13 +48,15 @@ def rows():
         ab, af = apply_traffic(B, h, T, vd)
         yield ("#3 _attn_apply_kernel", f"B=16 T={T} bf16, vd 12", ab, af,
                bound(ab, af))
-    Bt, T = 8, 1280
-    tb, tf = attention_traffic(Bt, h, T, qd, pd, train=True)
-    yield ("#4 _attn_weights_train_kernel", "B=8 T=1280 bf16", tb, tf,
-           bound(tb, tf))
-    bb, bf = bwd_traffic(Bt, h, T, qd, pd, BF16, penalty=False)
-    yield ("#5 _attn_weights_bwd_kernel", "B=8 T=1280 bf16, penalty off",
-           bb, bf, bound(bb, bf))
+    Bt = 8
+    for T in (1280, 640):
+        tb, tf = attention_traffic(Bt, h, T, qd, pd, train=True)
+        yield ("#4 _attn_weights_train_kernel", f"B=8 T={T} bf16", tb, tf,
+               bound(tb, tf))
+    for T in (1280, 640):
+        bb, bf = bwd_traffic(Bt, h, T, qd, pd, BF16, penalty=False)
+        yield ("#5 _attn_weights_bwd_kernel",
+               f"B=8 T={T} bf16, penalty off", bb, bf, bound(bb, bf))
     for C, T, k in CONV_LEVELS:
         cb, cf = conv_traffic(B, T, C, k)
         yield ("#6 _dwconv_kernel", f"B=16 T={T} C={C} k={k} bf16", cb, cf,

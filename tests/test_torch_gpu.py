@@ -132,11 +132,15 @@ def test_cuda_tensor_never_takes_plain_version(qd, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,qd", [(37, 8), (640, 32), (1029, 32)])
+@pytest.mark.parametrize("T,qd", [(37, 8), (63, 32), (64, 32), (65, 32),
+                                  (640, 32), (1029, 32)])
 def test_train_forward_kernel_matches_plain(dtype, T, qd):
-    """The training build: the same weights as the plain version, and its
-    largest |pre-mask score| equal to the plain one up to the rounding of
-    a sum taken in another order (1e-6 of it)."""
+    """The training build: the same weights as the plain version and, bit
+    for bit, as the inference build (each dtype's two builds share one
+    code path for the weights), and its largest |pre-mask score| equal to
+    the plain one up to the rounding of a sum taken in another order (1e-6
+    of it).  Ragged T around the bf16 build's 64-row blocks (63, 65),
+    padded keys and a fully masked sequence."""
     _cuda()
     args = _inputs(4, 4, T, qd, 4, dtype, seed=T, scale=2.0)
     before = rel_pos_attention_weights_train.launches
@@ -145,6 +149,7 @@ def test_train_forward_kernel_matches_plain(dtype, T, qd):
     assert rel_pos_attention_weights_train.launches == before + 1
     want, want_smax = rel_pos_attention_weights_train_ref(*args)
     _assert_matches(got, want)
+    assert torch.equal(got, rel_pos_attention_weights(*args))
     assert smax.dtype == torch.float32 and smax.shape == ()
     assert abs(smax.item() - want_smax.item()) <= 1e-6 * want_smax.item()
 
@@ -160,10 +165,15 @@ def _assert_grads_close(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("penalty", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T,qd", [(37, 8), (700, 32), (1029, 32)])
+@pytest.mark.parametrize("T,qd", [(37, 8), (63, 32), (64, 32), (65, 32),
+                                  (700, 32), (1029, 32), (2560, 32)])
 def test_bwd_kernel_matches_plain(dtype, T, qd, penalty):
     """dq, dk, dp and dpe of the backward kernel against the plain
-    backward, with the penalty off and on (scores past 25)."""
+    backward, with the penalty off and on (scores past 25): ragged T
+    around the bf16 build's 64-row and 64-key tiles (63, 65) and 128-key
+    chunks, T no multiple of 8 (37, 63, 65, 1029: g and w rows not 16-byte
+    aligned), T=2560 (the largest level phase 5 of chip_smoke.py runs),
+    padded keys and a fully masked sequence (uniform weights)."""
     _cuda()
     q, k, p, pe, mask = _inputs(3, 4, T, qd, 4, dtype, seed=T + 1,
                                 scale=2.0 if penalty else 1.0)
@@ -181,6 +191,57 @@ def test_bwd_kernel_matches_plain(dtype, T, qd, penalty):
         off = rel_pos_attention_weights_bwd_ref(q, k, p, pe, g, w,
                                                 torch.zeros_like(coin))
         assert (want[0] - off[0]).abs().max().item() > 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("penalty", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernel_same_bits_each_run(dtype, penalty):
+    """No atomics: two runs of the backward give the same bits."""
+    _cuda()
+    q, k, p, pe, mask = _inputs(3, 4, 1029, 32, 4, dtype, seed=5,
+                                scale=2.0 if penalty else 1.0)
+    w = rel_pos_attention_weights_ref(q, k, p, pe, mask)
+    g = torch.randn(w.shape, device="cuda").to(dtype)
+    coin = torch.tensor(float(penalty), device="cuda")
+    first = rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin)
+    again = rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernel_cancels_a_row_constant(dtype):
+    """The softmax VJP cancels a constant added to a row of g when the
+    row's weights sum to 1: with weights k/1024 (k <= 255 integers summing
+    to 1024 a row) and g0 on a 1/16 grid in [-2, 2], both exact in bf16,
+    as is g0 + 10, the kernel on g0 + 10 stays within the backward's
+    tolerance (1e-4 of each output's largest |value|) of the kernel on g0,
+    and both of the plain version.  A row-sum route whose f32 sums of
+    w (g0 + 10) cancel badly fails this."""
+    _cuda()
+    B, h, T, qd = 3, 4, 200, 32
+    q, k, p, pe, _ = _inputs(B, h, T, qd, 4, dtype, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    u = torch.rand(B, h, T, T, generator=gen, device="cuda") + 0.1
+    counts = torch.floor(1024 * u / u.sum(-1, keepdim=True))
+    rest = 1024 - counts.sum(-1, keepdim=True)
+    counts = counts + (torch.arange(T, device="cuda") < rest).float()
+    assert counts.max().item() <= 255
+    w = (counts / 1024).to(dtype)
+    assert torch.equal(w.float().sum(-1), torch.ones(B, h, T, device="cuda"))
+    g0 = torch.randint(-32, 33, (B, h, T, T), generator=gen,
+                       device="cuda").float() / 16
+    coin = torch.zeros((), device="cuda")
+    base = rel_pos_attention_weights_bwd(q, k, p, pe, g0.to(dtype), w, coin)
+    shifted = rel_pos_attention_weights_bwd(q, k, p, pe, (g0 + 10).to(dtype),
+                                            w, coin)
+    want = rel_pos_attention_weights_bwd_ref(q, k, p, pe, g0.to(dtype), w,
+                                             coin)
+    for a, b, c in zip(shifted, base, want):
+        _assert_grads_close(a, c)
+        _assert_grads_close(b, c)
+        assert (a - b).abs().max().item() <= 1e-4 * c.abs().max().item()
 
 
 @pytest.mark.gpu

@@ -28,8 +28,11 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# device kernel names of the trainable attention pair (both CUDA sources)
-ATTENTION_KERNELS = ("rel_pos_weights_kernel", "bwd_rows_kernel",
+# device kernel names of the trainable attention pair (both CUDA sources):
+# the bf16 builds the step runs, and the f32 builds
+ATTENTION_KERNELS = ("rel_pos_mma_kernel", "bwd_rows_mma_kernel",
+                     "bwd_keys_mma_kernel", "bwd_fold_mma_kernel",
+                     "rel_pos_weights_kernel", "bwd_rows_kernel",
                      "bwd_keys_kernel", "bwd_fold_kernel")
 # the port's depthwise-conv pair and PyTorch's own depthwise kernels
 CONV_KERNELS = ("dwconv_", "depthwise", "conv_depthwise")

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core kernels:
-// cp.async copies into shared memory, ldmatrix fragment loads, the
-// m16n8k16 bf16 mma with f32 sums, and a few conversions.
+// cp.async copies into shared memory, ldmatrix fragment loads, a movmatrix
+// transpose, the m16n8k16 bf16 mma with f32 sums, and a few conversions.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + a):
 //   A (16 x 16, row-major): a0 = (row g, cols 2a, 2a+1), a1 = (row g+8, the same),
@@ -60,6 +60,14 @@ __device__ __forceinline__ void ldmatrix_x2_trans(unsigned addr, unsigned& r0, u
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(addr));
+}
+
+// an 8 x 8 b16 matrix in the ldmatrix layout (lane 4 g + a: row g, cols 2a, 2a+1),
+// transposed across the warp into the same layout
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned v) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(v));
+  return d;
 }
 
 // c += A (16 x 16 bf16) . B (16 x 8 bf16), f32 sums

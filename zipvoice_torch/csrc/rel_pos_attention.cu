@@ -16,8 +16,8 @@
 // multiply-adds at that shape, about 0.1 ms on the f32 CUDA cores alone), the
 // exp of every score, and the bytes a block re-reads.
 //
-// Three builds:
-// - bf16 inference (rel_pos_mma_kernel): the two sweeps of rel_pos_sweeps.cuh, the
+// Two builds, each with an inference and a training variant:
+// - bf16 (rel_pos_mma_kernel): the two sweeps of rel_pos_sweeps.cuh, the
 //   same code as the fused weights + NonlinAttention kernel's
 //   (rel_pos_attention_nonlin.cu) without its na phase.  A block owns 64 query rows
 //   (k is read T/64 times a sequence from L2, not T/8), q.k^T runs on the tensor
@@ -29,18 +29,25 @@
 //   3.6x its byte bound at the main path's shape: like the fused kernel it is bound
 //   by latency (a barrier per chunk, a dependent chain per score) and by two exps a
 //   score (sweep 1's sum, sweep 2's weight).
-// - f32 inference and the training build in both dtypes (rel_pos_weights_kernel):
-//   the CUDA cores in f32, where TF32 would cost precision.  A block owns kRows
-//   query rows of one (b, h), computes their full score rows into shared memory,
-//   normalises them there and writes each weight exactly once.  The TPU kernel's
+// - f32 (rel_pos_weights_kernel): the CUDA cores in f32, where TF32 would cost
+//   precision.  A block owns kRows query rows of one (b, h), computes their full
+//   score rows into shared memory, normalises them there and writes each weight
+//   exactly once.  The TPU kernel's
 //   strided roll for the rel->abs skew is only an index here: key j of row i reads
 //   positional row j - i + T - 1 from a window of the pe table staged in shared
 //   memory for each chunk of keys.
-// - The training build (kBlockMax = true) replaces
+// - The training variant (kBlockMax = true) replaces
 //   zipvoice_tpu/ops/pallas_attention.py::_attn_weights_train_kernel: the same
 //   weights, and each block also writes the largest |pre-mask score| of its rows
 //   to block_max[(b, h), row tile], from which the wrapper takes one amax.  The
 //   backward uses it to skip the score penalty when no |score| exceeds its limit.
+//   In bf16 it is rel_pos_mma_kernel<QD, true>: sweep 1 keeps each thread's
+//   largest |score| before the -1000 fill (keys < T), and the block reduces them
+//   to one f32 per 64 rows; its weights are the inference build's, bit for bit.
+//   Its scores are the ones the backward (rel_pos_attention_bwd.cu) recomputes
+//   for the penalty, in the same arithmetic, so that the forward's maximum and
+//   the backward's |s| > 25 test see the same numbers.  In f32 it is
+//   rel_pos_weights_kernel<QD, true>, 8 rows a block.
 //
 // Ragged T is masked in every build (no tile-multiple rule).
 
@@ -61,26 +68,17 @@ constexpr int kChunk = kThreads * kKeysPerThread;
 constexpr int kPD = 4;                        // pos_head_dim
 constexpr int kWindow = kChunk + kRows - 1;   // pe rows one chunk can read
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One contiguous row of QD elements (16-byte aligned) into f32 registers.
-template <typename T, int QD>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, float (&dst)[QD]) {
-  constexpr int kVec = 16 / sizeof(T);
-  static_assert(QD % kVec == 0, "a row must be a whole number of 16-byte vectors");
+// One contiguous row of QD floats (16-byte aligned) into registers.
+template <int QD>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&dst)[QD]) {
+  static_assert(QD % 4 == 0, "a row must be a whole number of 16-byte vectors");
 #pragma unroll
-  for (int v = 0; v < QD / kVec; ++v) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src) + v);
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int u = 0; u < kVec; ++u) dst[v * kVec + u] = to_float(e[u]);
+  for (int v = 0; v < QD / 4; ++v) {
+    const float4 raw = __ldg(reinterpret_cast<const float4*>(src) + v);
+    dst[4 * v] = raw.x;
+    dst[4 * v + 1] = raw.y;
+    dst[4 * v + 2] = raw.z;
+    dst[4 * v + 3] = raw.w;
   }
 }
 
@@ -100,11 +98,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // q, k: (B, H, T, QD); p: (B, H, T, kPD); pe: (H, 2T-1, kPD); mask: (B, T) bytes,
 // nonzero = padded key; out: (B, H, T, T); block_max (training build only):
 // (B * H, ceil(T / kRows)) f32.  All contiguous.
-template <typename T, int QD, bool kBlockMax>
+template <int QD, bool kBlockMax>
 __global__ void __launch_bounds__(kThreads)
-rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ p, const T* __restrict__ pe,
-                       const uint8_t* __restrict__ mask, T* __restrict__ out,
+rel_pos_weights_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ p, const float* __restrict__ pe,
+                       const uint8_t* __restrict__ mask, float* __restrict__ out,
                        float* __restrict__ block_max, int H, int seq) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                          // [kRows][QD]
@@ -120,12 +118,12 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t row0 = (size_t)bh * seq + i0;  // first query row, counted over (B, H, T)
 
   for (int x = threadIdx.x; x < kRows * QD; x += kThreads)
-    q_s[x] = x / QD < nrows ? to_float(q[row0 * QD + x]) : 0.f;
+    q_s[x] = x / QD < nrows ? q[row0 * QD + x] : 0.f;
   for (int x = threadIdx.x; x < kRows * kPD; x += kThreads)
-    p_s[x] = x / kPD < nrows ? to_float(p[row0 * kPD + x]) : 0.f;
+    p_s[x] = x / kPD < nrows ? p[row0 * kPD + x] : 0.f;
 
-  const T* k_bh = k + (size_t)bh * seq * QD;
-  const T* pe_h = pe + (size_t)h * (2 * seq - 1) * kPD;
+  const float* k_bh = k + (size_t)bh * seq * QD;
+  const float* pe_h = pe + (size_t)h * (2 * seq - 1) * kPD;
   const uint8_t* mask_b = mask + (size_t)b * seq;
   float abs_max = 0.f;  // training build: largest |pre-mask score| seen here
 
@@ -136,7 +134,7 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int n_lo = j0 - i0 - (kRows - 1) + seq - 1;
     for (int x = threadIdx.x; x < kWindow * kPD; x += kThreads) {
       const int n = n_lo + x / kPD;
-      pe_s[x] = (n >= 0 && n < 2 * seq - 1) ? to_float(pe_h[(size_t)n * kPD + x % kPD]) : 0.f;
+      pe_s[x] = (n >= 0 && n < 2 * seq - 1) ? pe_h[(size_t)n * kPD + x % kPD] : 0.f;
     }
     __syncthreads();
 
@@ -149,7 +147,7 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
       live[u] = j < seq;
       masked[u] = live[u] && mask_b[j] != 0;
       if (live[u]) {
-        load_row<T, QD>(k_bh + (size_t)j * QD, kr[u]);
+        load_row<QD>(k_bh + (size_t)j * QD, kr[u]);
       } else {
 #pragma unroll
         for (int d = 0; d < QD; ++d) kr[u][d] = 0.f;
@@ -219,26 +217,39 @@ rel_pos_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += e;
     }
     const float inv = 1.f / warp_sum(sum);
-    T* orow = out + (row0 + r) * (size_t)seq;
-    for (int j = lane; j < seq; j += 32) orow[j] = from_float<T>(row[j] * inv);
+    float* orow = out + (row0 + r) * (size_t)seq;
+    for (int j = lane; j < seq; j += 32) orow[j] = row[j] * inv;
   }
 }
 
-// The bf16 inference build.  grid = (ceil(T / zv::kRowsN), B * H), blockIdx.y =
-// b * H + h, so that the blocks of one (b, h) run together and share k from L2;
-// block = zv::kThreadsN.  Arguments as rel_pos_weights_kernel's, all bf16 but the mask.
-template <int QD>
+// The bf16 build.  grid = (ceil(T / zv::kRowsN), B * H), blockIdx.y = b * H + h, so
+// that the blocks of one (b, h) run together and share k from L2; block =
+// zv::kThreadsN.  Arguments as rel_pos_weights_kernel's, all bf16 but the mask;
+// block_max (training build only): (B * H, ceil(T / zv::kRowsN)) f32.
+template <int QD, bool kBlockMax>
 __global__ void __launch_bounds__(zv::kThreadsN, 2)
 rel_pos_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__ pe,
-                   const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, int H,
-                   int seq) {
+                   const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ block_max, int H, int seq) {
   extern __shared__ __align__(128) unsigned char smem_w[];
   const int b = blockIdx.y / H;
   const int h = blockIdx.y - b * H;
-  zv::rel_pos_sweeps<QD>(q, k, p, pe, mask, out, smem_w,
-                         smem_w + zv::SweepShape<QD>::kSweepRingBytes, b, h, H,
-                         blockIdx.x * zv::kRowsN, seq);
+  float abs_max = 0.f;
+  zv::rel_pos_sweeps<QD, kBlockMax>(q, k, p, pe, mask, out, smem_w,
+                                    smem_w + zv::SweepShape<QD>::kSweepRingBytes, b, h, H,
+                                    blockIdx.x * zv::kRowsN, seq, &abs_max);
+  if constexpr (kBlockMax) {
+    __shared__ float warp_maxes[zv::kWarpsN];
+    abs_max = warp_max(abs_max);
+    if ((threadIdx.x & 31) == 0) warp_maxes[threadIdx.x >> 5] = abs_max;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float m = warp_maxes[0];
+      for (int w = 1; w < zv::kWarpsN; ++w) m = fmaxf(m, warp_maxes[w]);
+      block_max[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = m;
+    }
+  }
 }
 
 long long mma_smem_bytes(int qd, int seq) {
@@ -252,13 +263,13 @@ long long cuda_core_smem_bytes(int qd, int seq) {
          ((long long)kRows * qd + kRows * kPD + kWindow * kPD + (long long)kRows * seq);
 }
 
-template <int QD>
+template <int QD, bool kBlockMax>
 cudaError_t launch_mma(const void* q, const void* k, const void* p, const void* pe,
-                       const void* mask, void* out, int B, int H, int seq,
+                       const void* mask, void* out, float* block_max, int B, int H, int seq,
                        cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   const int smem = (int)mma_smem_bytes(QD, seq);
-  auto kernel = rel_pos_mma_kernel<QD>;
+  auto kernel = rel_pos_mma_kernel<QD, kBlockMax>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -266,41 +277,36 @@ cudaError_t launch_mma(const void* q, const void* k, const void* p, const void* 
   kernel<<<grid, zv::kThreadsN, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(p),
       static_cast<const bf16*>(pe), static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
-      H, seq);
+      block_max, H, seq);
   return cudaGetLastError();
 }
 
-template <typename T, int QD, bool kBlockMax>
-cudaError_t launch(const void* q, const void* k, const void* p, const void* pe,
-                   const void* mask, void* out, float* block_max, int B, int H, int seq,
-                   cudaStream_t stream) {
-  if constexpr (!kBlockMax && sizeof(T) == 2) {  // the bf16 inference build
-    return launch_mma<QD>(q, k, p, pe, mask, out, B, H, seq, stream);
-  } else {
-    const size_t smem = cuda_core_smem_bytes(QD, seq);
-    auto kernel = rel_pos_weights_kernel<T, QD, kBlockMax>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((seq + kRows - 1) / kRows, B * H);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
-        static_cast<const T*>(pe), static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-        block_max, H, seq);
-    return cudaGetLastError();
-  }
+template <int QD, bool kBlockMax>
+cudaError_t launch_f32(const void* q, const void* k, const void* p, const void* pe,
+                       const void* mask, void* out, float* block_max, int B, int H, int seq,
+                       cudaStream_t stream) {
+  const size_t smem = cuda_core_smem_bytes(QD, seq);
+  auto kernel = rel_pos_weights_kernel<QD, kBlockMax>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kRows - 1) / kRows, B * H);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(p),
+      static_cast<const float*>(pe), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), block_max, H, seq);
+  return cudaGetLastError();
 }
 
-template <typename T, bool kBlockMax>
-cudaError_t dispatch_qd(int qd, const void* q, const void* k, const void* p, const void* pe,
-                        const void* mask, void* out, float* block_max, int B, int H, int seq,
-                        cudaStream_t stream) {
-  // 32: the ZipVoice models' query_head_dim; 8: the tests' small models
-  switch (qd) {
-    case 8:
-      return launch<T, 8, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
-    case 32:
-      return launch<T, 32, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
+template <int QD, bool kBlockMax>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* p, const void* pe,
+                   const void* mask, void* out, float* block_max, int B, int H, int seq,
+                   cudaStream_t stream) {
+  switch (dtype) {
+    case 0:
+      return launch_f32<QD, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
+    case 1:
+      return launch_mma<QD, kBlockMax>(q, k, p, pe, mask, out, block_max, B, H, seq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -310,12 +316,10 @@ int dispatch(int dtype, int qd, const void* q, const void* k, const void* p, con
              const void* mask, void* out, float* block_max, int B, int H, int seq,
              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_qd<float, kBlockMax>(qd, q, k, p, pe, mask, out, block_max, B, H, seq, s);
-    case 1:
-      return dispatch_qd<__nv_bfloat16, kBlockMax>(qd, q, k, p, pe, mask, out, block_max, B, H,
-                                                   seq, s);
+  // 32: the ZipVoice models' query_head_dim; 8: the tests' small models
+  switch (qd) {
+    case 8: return launch<8, kBlockMax>(dtype, q, k, p, pe, mask, out, block_max, B, H, seq, s);
+    case 32: return launch<32, kBlockMax>(dtype, q, k, p, pe, mask, out, block_max, B, H, seq, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -331,8 +335,9 @@ extern "C" int zv_rel_pos_attention_weights(int dtype, int qd, const void* q, co
   return dispatch<false>(dtype, qd, q, k, p, pe, mask, out, nullptr, B, H, seq, stream);
 }
 
-// The training build (CUDA cores in both dtypes): as above, and block_max ((B * H, ceil(seq / kRows)) f32)
-// receives each block's largest |pre-mask score|.
+// The training build: as above, and block_max ((B * H, ceil(seq /
+// zv_rel_pos_attention_rows_per_block(dtype))) f32) receives each block's largest
+// |pre-mask score|.
 extern "C" int zv_rel_pos_attention_weights_train(int dtype, int qd, const void* q,
                                                   const void* k, const void* p, const void* pe,
                                                   const void* mask, void* out, void* block_max,
@@ -341,12 +346,15 @@ extern "C" int zv_rel_pos_attention_weights_train(int dtype, int qd, const void*
                         H, seq, stream);
 }
 
-// Query rows per block of the training build: the width of block_max's second
-// axis is ceil(seq / this).
-extern "C" int zv_rel_pos_attention_rows_per_block() { return kRows; }
+// Query rows per block of the training build of `dtype`: the width of block_max's
+// second axis is ceil(seq / this).
+extern "C" int zv_rel_pos_attention_rows_per_block(int dtype) {
+  return dtype == 1 ? zv::kRowsN : kRows;
+}
 
-// Dynamic shared memory one block of the build that (dtype, train) selects needs
-// at (qd, seq); the wrapper checks it against the card's limit before launching.
-extern "C" long long zv_rel_pos_attention_smem_bytes(int dtype, int train, int qd, int seq) {
-  return dtype == 1 && !train ? mma_smem_bytes(qd, seq) : cuda_core_smem_bytes(qd, seq);
+// Dynamic shared memory one block of the build of `dtype` (inference or training)
+// needs at (qd, seq); the wrapper checks it against the card's limit before
+// launching.
+extern "C" long long zv_rel_pos_attention_smem_bytes(int dtype, int qd, int seq) {
+  return dtype == 1 ? mma_smem_bytes(qd, seq) : cuda_core_smem_bytes(qd, seq);
 }

@@ -27,6 +27,10 @@
 //   16 x 64 weights in shared memory and stores them itself as 16-byte, coalesced
 //   stores (no block barrier); a T that is no multiple of 8 (the weight rows are
 //   then not 16-byte aligned) stores them one by one.  Keys past T score -inf.
+// - With kBlockMax (the bf16 training forward, rel_pos_attention.cu), sweep 1 also
+//   keeps the thread's largest |score| before the mask's -1000 fill, over the keys
+//   j < T (a row past T scores 0), and hands it to the caller to reduce.  Without it
+//   the code is the inference kernels' as it was.
 
 #pragma once
 
@@ -104,13 +108,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 // `ring` holds kStagesN stages of SweepShape<QD>::kSweepStageBytes, `tail`
 // sweep_tail_bytes(seq), both in shared memory.  Returns with every cp.async of
 // the thread complete and the block's weights stored (not yet visible to the
-// block: the caller's barrier does that).
-template <int QD>
+// block: the caller's barrier does that).  With kBlockMax, *abs_max receives the
+// thread's largest |pre-mask score|.
+template <int QD, bool kBlockMax = false>
 __device__ __forceinline__ void rel_pos_sweeps(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ p, const __nv_bfloat16* __restrict__ pe,
     const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out, unsigned char* ring,
-    unsigned char* tail, int b, int h, int H, int i0, int seq) {
+    unsigned char* tail, int b, int h, int H, int i0, int seq, float* abs_max = nullptr) {
   using S = SweepShape<QD>;
   unsigned char* wc_s = tail;                                     // [64 rows][kKeysN]
   float* ml_s = reinterpret_cast<float*>(wc_s + kWcTileBytes);    // [2 halves][64 rows][2]
@@ -210,6 +215,7 @@ __device__ __forceinline__ void rel_pos_sweeps(
   // T is -inf (no weight), a masked key -1000.
   const int key_lo = kKeysN / 2 * kh;  // this warp's first key of a chunk
   const int krow = key_lo + (lane & 7);
+  float amax = 0.f;  // kBlockMax: the largest |pre-mask score| this thread scored
   auto scores = [&](const unsigned char* st, int step, int c, float (&s)[kNTW][4]) {
     const unsigned kt = smem_addr(st);
 #pragma unroll
@@ -243,6 +249,12 @@ __device__ __forceinline__ void rel_pos_sweeps(
 #pragma unroll
     for (int nt = 0; nt < kNTW; ++nt) {
       const float2 f = *reinterpret_cast<const float2*>(fill + 8 * nt);
+      if constexpr (kBlockMax) {
+        if (step < nc) {  // sweep 1, before the fill; keys past T (fill -inf) excluded
+          if (f.x != -INFINITY) amax = fmaxf(amax, fmaxf(fabsf(s[nt][0]), fabsf(s[nt][2])));
+          if (f.y != -INFINITY) amax = fmaxf(amax, fmaxf(fabsf(s[nt][1]), fabsf(s[nt][3])));
+        }
+      }
       if (f.x != 0.f) s[nt][0] = s[nt][2] = f.x;
       if (f.y != 0.f) s[nt][1] = s[nt][3] = f.y;
     }
@@ -342,6 +354,7 @@ __device__ __forceinline__ void rel_pos_sweeps(
     }
   }
   cp_async_wait<0>();
+  if constexpr (kBlockMax) *abs_max = amax;
 }
 
 }  // namespace zv

@@ -21,10 +21,10 @@ counts its launches in ``<wrapper>.launches``:
 The first two are builds of ``zipvoice_torch/csrc/rel_pos_attention.cu``,
 the third is ``zipvoice_torch/csrc/rel_pos_attention_bwd.cu``, the fourth
 ``zipvoice_torch/csrc/rel_pos_attention_nonlin.cu`` and the fifth
-``zipvoice_torch/csrc/attention_apply.cu``.  The inference weights, the
-fused kernel and the application kernel have a tensor-core build for bf16
-and a CUDA-core build for f32; the inference and fused kernels' bf16
-builds run one copy of the weights code (``csrc/rel_pos_sweeps.cuh``).
+``zipvoice_torch/csrc/attention_apply.cu``.  Each has a tensor-core build
+for bf16 and a CUDA-core build for f32; the bf16 builds of the inference,
+training and fused weights run one copy of the weights code
+(``csrc/rel_pos_sweeps.cuh``).
 Each source's header says what bounds it on an H100 and how its design
 answers that.
 ``rel_pos_attention_weights_trainable`` joins the training pair in a
@@ -171,12 +171,12 @@ def _kernel():
     ]
     train.restype = ctypes.c_int
     smem = lib.zv_rel_pos_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 4
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     rows = lib.zv_rel_pos_attention_rows_per_block
-    rows.argtypes = []
+    rows.argtypes = [ctypes.c_int]
     rows.restype = ctypes.c_int
-    return fn, train, smem, rows()
+    return fn, train, smem, rows
 
 
 @functools.cache
@@ -217,10 +217,10 @@ def _bwd_kernel():
     ]
     fn.restype = ctypes.c_int
     scratch = lib.zv_rel_pos_attention_bwd_scratch_floats
-    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    scratch.argtypes = [ctypes.c_int] * 4
     scratch.restype = ctypes.c_longlong
     smem = lib.zv_rel_pos_attention_bwd_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return fn, scratch, smem
 
@@ -289,7 +289,7 @@ def rel_pos_attention_weights(
         raise ValueError("p and pe must be 8-byte aligned")
     B, h, T, qd = q.shape
     fn, _, smem_bytes, _ = _kernel()
-    if smem_bytes(DTYPE_CODES[q.dtype], 0, qd, T) > _MAX_SMEM:
+    if smem_bytes(DTYPE_CODES[q.dtype], qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -310,17 +310,21 @@ rel_pos_attention_weights.launches = 0
 def rel_pos_attention_weights_train(q, k, p, pe, key_padding_mask):
     """The training forward: (weights (B, h, T, T) in q's dtype, the
     largest |pre-mask score| as an f32 device scalar).  CUDA tensors run
-    the kernel's training build, which also writes each block's largest
+    the kernel's training build (bf16 on the tensor cores, the inference
+    build's weights bit for bit), which also writes each block's largest
     |score|; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return rel_pos_attention_weights_train_ref(q, k, p, pe,
                                                    key_padding_mask)
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
+    if q.dtype == torch.bfloat16 and (p.data_ptr() % 8 or pe.data_ptr() % 8):
+        raise ValueError("p and pe must be 8-byte aligned")
     B, h, T, qd = q.shape
-    _, fn, smem_bytes, rows = _kernel()
-    if smem_bytes(DTYPE_CODES[q.dtype], 1, qd, T) > _MAX_SMEM:
+    _, fn, smem_bytes, rows_per_block = _kernel()
+    if smem_bytes(DTYPE_CODES[q.dtype], qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
+    rows = rows_per_block(DTYPE_CODES[q.dtype])
     out = torch.empty((B, h, T, T), dtype=q.dtype, device=q.device)
     block_max = torch.empty((B * h, (T + rows - 1) // rows),
                             dtype=torch.float32, device=q.device)
@@ -420,7 +424,8 @@ def rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin_live):
     upstream gradient ``g`` and the saved weights ``w`` (both (B, h, T, T)
     in q's dtype) and ``coin_live``, an f32 0/1 device scalar that turns
     the score penalty on.  CUDA tensors run the kernel
-    (``csrc/rel_pos_attention_bwd.cu``); CPU tensors the plain version."""
+    (``csrc/rel_pos_attention_bwd.cu``; bf16 on the tensor cores); CPU
+    tensors the plain version."""
     if q.device.type == "cpu":
         return rel_pos_attention_weights_bwd_ref(q, k, p, pe, g, w,
                                                  coin_live)
@@ -429,20 +434,25 @@ def rel_pos_attention_weights_bwd(q, k, p, pe, g, w, coin_live):
     if (coin_live.device != q.device or coin_live.dtype != torch.float32
             or coin_live.numel() != 1):
         raise ValueError("coin_live must be one f32 value on q's device")
+    if q.dtype == torch.bfloat16 and (
+            p.data_ptr() % 8 or pe.data_ptr() % 8 or g.data_ptr() % 16
+            or w.data_ptr() % 16):
+        raise ValueError("p and pe must be 8-byte aligned, g and w 16-byte")
     B, h, T, qd = q.shape
     pd = p.shape[-1]
+    code = DTYPE_CODES[q.dtype]
     fn, scratch_floats, smem_bytes = _bwd_kernel()
-    if smem_bytes(qd, T) > _MAX_SMEM:
+    if smem_bytes(code, qd, T) > _MAX_SMEM:
         raise ValueError(f"T={T} needs more shared memory than a block has")
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((B, h, T, qd), **f32)
     dk = torch.empty((B, h, T, qd), **f32)
     dp = torch.empty((B, h, T, pd), **f32)
     dpe = torch.empty((h, 2 * T - 1, pd), **f32)
-    scratch = torch.empty((scratch_floats(B, h, T),), **f32)
+    scratch = torch.empty((scratch_floats(code, B, h, T),), **f32)
     with torch.cuda.device(q.device):
         err = fn(
-            DTYPE_CODES[q.dtype], qd, q.data_ptr(), k.data_ptr(),
+            code, qd, q.data_ptr(), k.data_ptr(),
             p.data_ptr(), pe.data_ptr(), g.data_ptr(), w.data_ptr(),
             coin_live.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dp.data_ptr(), dpe.data_ptr(), scratch.data_ptr(), B, h, T,
