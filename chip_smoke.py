@@ -1159,12 +1159,11 @@ def main(argv=None) -> int:
         "depthwise_conv1d": (
             "zipvoice_torch/csrc/depthwise_conv.cu",
             "zipvoice_tpu/ops/pallas_conv.py:26",
-            ["dwconv_kernel<bf16, K, false>"]),
+            ["dwconv_kernel<bf16, K>"]),
         "depthwise_conv1d_bwd": (
             "zipvoice_torch/csrc/depthwise_conv.cu",
             "zipvoice_tpu/ops/pallas_conv.py:41",
-            ["dwconv_kernel<bf16, K, true>", "dwconv_dw_kernel<bf16, K>",
-             "dwconv_fold_kernel"]),
+            ["dwconv_bwd_kernel<bf16, K>"]),
     }
     kernels = [dict(
         name=name, route="cuda", source=src, replaces=tpu,

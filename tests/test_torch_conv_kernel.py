@@ -49,14 +49,16 @@ def test_plain_version_matches_pallas_interpret(k):
     assert torch.equal(same, got)
 
 
-def test_trainable_grads_match_pallas_vjp():
+@pytest.mark.parametrize("k,T", [(7, 48), (9, 48), (15, 48), (31, 48),
+                                 (9, 5)])
+def test_trainable_grads_match_pallas_vjp(k, T):
     """dv, dw and db of the port's differentiable conv (on the CPU, the
     plain backward) against the Pallas backward kernel's, within 1e-5 of
-    each tensor's largest |value|."""
+    each tensor's largest |value|: every kernel size of the models, and
+    T < k (5 rows under a 9-tap filter, mostly SAME padding)."""
     from zipvoice_tpu.ops.pallas_conv import depthwise_conv1d_vjp
 
-    k = 15
-    v, w, b = _inputs(k, T=48, seed=1)
+    v, w, b = _inputs(k, T=T, seed=1)
     g = np.random.RandomState(2).randn(*v.shape).astype(np.float32)
 
     def loss(v, w, b):

@@ -333,34 +333,63 @@ def test_depthwise_conv_kernel_matches_plain(dtype, B, T, C, k):
     _assert_conv_close(got, depthwise_conv1d_ref(v, w, b), dtype)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,T,C,k", [(3, 37, 40, 5), (8, 640, 512, 15),
-                                     (2, 700, 512, 31)])
-def test_depthwise_conv_bwd_kernel_matches_plain(dtype, B, T, C, k):
-    """dv, dw and db against the plain backward: dv element by element
-    as the forward; dw and db, sums over B x T products in f32 rounded to
-    the dtype, within 1e-4 of each tensor's largest |value| (bf16: one
-    rounding more)."""
-    _cuda()
-    torch.backends.cudnn.allow_tf32 = False
+def _check_conv_bwd(B, T, C, k, dtype):
+    """One backward launch on seeded inputs against the plain backward: dv
+    element by element as the forward; dw and db, sums over B x T products
+    in f32 rounded to the dtype, within 1e-4 of each tensor's largest
+    |value| (bf16: one rounding more).  Returns the inputs and outputs."""
     v, w, _ = _conv_inputs(B, T, C, k, dtype, seed=T + k + 1)
-    g = torch.randn(B, T, C, device="cuda").to(dtype)
+    g = torch.randn(B, T, C, generator=torch.Generator(device="cuda")
+                    .manual_seed(B + T + C), device="cuda").to(dtype)
     before = depthwise_conv1d_bwd.launches
-    dv, dw, db = depthwise_conv1d_bwd(v, g, w)
+    out = depthwise_conv1d_bwd(v, g, w)
     torch.cuda.synchronize()
     assert depthwise_conv1d_bwd.launches == before + 1
     want = depthwise_conv1d_bwd_ref(v, g, w)
-    _assert_conv_close(dv, want[0], dtype)
-    for got, ref in zip((dw, db), want[1:]):
+    _assert_conv_close(out[0], want[0], dtype)
+    for got, ref in zip(out[1:], want[1:]):
         assert got.dtype == dtype and got.shape == ref.shape
         tol = 1e-4 * ref.float().abs().max().item()
         if dtype == torch.bfloat16:
             tol = tol + 2.0 ** -7 * ref.float().abs()
         assert ((got.float() - ref.float()).abs() <= tol).all()
-    # deterministic: a second run gives the same bits
-    again = depthwise_conv1d_bwd(v, g, w)
-    assert all(torch.equal(a, b) for a, b in zip((dv, dw, db), again))
+    return (v, g, w), out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,C,k", [(3, 37, 40, 5), (8, 640, 512, 15),
+                                     (2, 700, 512, 31), (8, 1280, 512, 31),
+                                     (8, 320, 512, 7), (8, 128, 192, 9),
+                                     (2, 70, 37, 3), (2, 5, 64, 31),
+                                     (1, 1279, 512, 31),
+                                     (16, 2560, 512, 31)])
+def test_depthwise_conv_bwd_kernel_matches_plain(dtype, B, T, C, k):
+    """dv, dw and db against the plain backward (``_check_conv_bwd``), and
+    the same bits on a second run: the main path's four levels at B=8;
+    ragged T and C (C=37 odd and no multiple of 16 bytes: copied and stored
+    element by element); T < k; B=1; and a long run of tiles a block
+    (B=16, T=2560: 40,960 products in each f32 dw sum)."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    args, out = _check_conv_bwd(B, T, C, k, dtype)
+    again = depthwise_conv1d_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_depthwise_conv_bwd_kernel_shapes_back_to_back(dtype):
+    """The backward keeps completion counters in its scratch between calls:
+    a shape with fewer channel slices and blocks between two calls of a
+    larger one, each right, the repeat of the first with its bits."""
+    _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    args, first = _check_conv_bwd(8, 640, 512, 15, dtype)
+    _check_conv_bwd(3, 37, 192, 5, dtype)
+    _check_conv_bwd(2, 1280, 512, 31, dtype)
+    again = depthwise_conv1d_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu

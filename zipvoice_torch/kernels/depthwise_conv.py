@@ -7,7 +7,10 @@ counts its launches in ``<wrapper>.launches``:
 
 - ``depthwise_conv1d`` replaces the TPU kernel
   ``zipvoice_tpu/ops/pallas_conv.py::_dwconv_kernel``;
-- ``depthwise_conv1d_bwd`` replaces ``_dwconv_bwd_kernel``: dv, dw and db.
+- ``depthwise_conv1d_bwd`` replaces ``_dwconv_bwd_kernel``: dv, dw and db
+  in one launch and one pass over v and g (dv from g's window, dw and db
+  from v's window against g, per-block f32 partials of dw and db that the
+  last block of each channel slice sums in a fixed order).
 
 Both are in ``zipvoice_torch/csrc/depthwise_conv.cu``, whose header says
 what bounds them on an H100 and how the design answers that.
@@ -83,6 +86,21 @@ def _kernel():
     return fwd, bwd, scratch
 
 
+# the backward's f32 scratch per (device, stream): its head holds the
+# kernel's completion counters, which must be zero when it launches and which
+# it leaves zero, so the scratch is zeroed once and kept (calls on one stream
+# run in order); a larger shape replaces it with a larger zeroed one
+_SCRATCH = {}
+
+
+def _scratch(device, stream, floats):
+    buf = _SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < floats:
+        buf = torch.zeros((floats,), dtype=torch.float32, device=device)
+        _SCRATCH[(device, stream)] = buf
+    return buf
+
+
 def _check(v, w, b=None, g=None):
     if v.dim() != 3 or w.dim() != 2:
         raise ValueError(f"want v (B, T, C) and w (C, k), got "
@@ -143,8 +161,9 @@ depthwise_conv1d.launches = 0
 
 def depthwise_conv1d_bwd(v: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
     """The backward: (dv (B, T, C), dw (C, k), db (C,)), all in the inputs'
-    dtype, dw and db summed over batch and time in f32 in a fixed order.
-    CUDA tensors run the kernel; CPU tensors run the plain version."""
+    dtype, dw and db summed over batch and time in f32 in a fixed order (the
+    same bits on every run).  CUDA tensors run the kernel; CPU tensors run
+    the plain version."""
     if v.device.type == "cpu":
         return depthwise_conv1d_bwd_ref(v, g, w)
     require_cuda(v)
@@ -155,13 +174,12 @@ def depthwise_conv1d_bwd(v: torch.Tensor, g: torch.Tensor, w: torch.Tensor):
     dv = torch.empty_like(v)
     dw = torch.empty_like(w)
     db = torch.empty((C,), dtype=w.dtype, device=w.device)
-    scratch = torch.empty((scratch_floats(B, T, C, k),), dtype=torch.float32,
-                          device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    scratch = _scratch(v.device, stream, scratch_floats(B, T, C, k))
     with torch.cuda.device(v.device):
         err = bwd(DTYPE_CODES[v.dtype], k, v.data_ptr(), g.data_ptr(),
                   w.data_ptr(), dv.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                  scratch.data_ptr(), B, T, C,
-                  torch.cuda.current_stream(v.device).cuda_stream)
+                  scratch.data_ptr(), B, T, C, stream)
     raise_on(err, "depthwise_conv1d_bwd")
     depthwise_conv1d_bwd.launches += 1
     return dv, dw, db
