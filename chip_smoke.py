@@ -62,7 +62,21 @@ are built for sm_90a).  Phases, each of which must pass:
    conv pair beside the attention pair), with exactly one conv forward and
    one conv backward launch per ConvolutionModule a step, then one f32
    step with the conv pair and one without, from the same generators and
-   batch, held as in phase 7.
+   batch, held as in phase 7;
+11. the text -> wav path: write a model dir of the ZipVoice base at its
+   published widths with random weights and a random Vocos
+   (``bin/make_model_dir.py``) in a temporary directory, synthesize a 3 s
+   prompt wav, load both in bf16 with ``load_model_dir`` and
+   ``load_vocos``, and run ``generate_sentence`` (its micro-batch at the
+   1280-frame bucket), ``generate_raw`` and ``generate_stream`` in process,
+   each with #1's launches equal to what the model's gates predict for the
+   buckets it dispatched and above 0, and its wavs checked (finite, within
+   [-1, 1], one channel, between half and all of the generated frames'
+   length; the stream's segments as long as the offline cross-fade of its
+   chunks); then the CLI as a subprocess on a test list of an English line
+   and a Chinese line with a <pinyin> tag: exit 0, two 24 kHz wavs, rtf
+   logged.  Prints the write and load times, the front end's host time,
+   ``t``, ``t_no_vocoder``, ``t_vocoder`` and the rtf.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -1031,6 +1045,233 @@ def phase_config_train(card, seed, batch, f32_model, f32_pair_run):
     return launches
 
 
+# phase 11: a 3 s prompt of about 45 phone tokens ("The birch canoe ...",
+# 2.8 s once trimmed) and a two-sentence text of 144 tokens: one chunk, which
+# lands in the 1280-frame bucket, where #1 runs at the top two levels
+CLI_PROMPT_TEXT = "The birch canoe slid on the smooth planks."
+CLI_TEXT = ("Across the valley, the old mill still turns when the spring "
+            "rains come. Travelers who stop by are offered warm bread and a "
+            "seat by the fire.")
+CLI_ZH_TEXT = "今天天气很好，我们去<hai3>边散步吧。"
+# generate_sentence runs timed again after the counted one, for the spread
+CLI_REPEATS = 3
+
+
+def record_dispatches(model):
+    """Wrap ``model.sample`` so that each call appends its (B, S, T) to the
+    returned list; ``del model.sample`` undoes it."""
+    dispatched = []
+    inner = model.sample
+
+    def sample(**kw):
+        dispatched.append((kw["tokens"].shape[0], kw["tokens"].shape[1],
+                           kw["prompt_features"].shape[1]))
+        return inner(**kw)
+
+    model.sample = sample
+    return dispatched
+
+
+def counted(card, what, model, num_step, fn):
+    """Run ``fn`` with every launch count at 0 just before it and the
+    model's dispatches recorded: the launches must equal what
+    ``expected_launches`` predicts for those buckets, and #1's must be
+    more than 0.  Returns (fn's result, #1's launches, seconds)."""
+    import torch
+
+    dispatched = record_dispatches(model)
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launched = launch_counts()
+    del model.sample
+    want = dict.fromkeys(launched, 0)
+    for _, S, T in dispatched:
+        for name, n in expected_launches(model, S, T, num_step).items():
+            want[name] += n
+    print(f"{what}: buckets (B, S, T) {dispatched}, launches "
+          f"{ {k: v for k, v in launched.items() if v} } (expected "
+          f"{ {k: v for k, v in want.items() if v} }) [{card}]", flush=True)
+    if launched != want or launched["rel_pos_attention_weights"] <= 0:
+        raise AssertionError(f"{what}: launches {launched}, want {want}")
+    return out, launched["rel_pos_attention_weights"], seconds
+
+
+def check_wav(what, wav, frames):
+    """One finite channel within [-1, 1], between half and all of the
+    ``frames`` x 256 / 24000 s that the model generated."""
+    most = frames * 256 / 24000
+    seconds = wav.shape[-1] / 24000
+    if wav.ndim != 2 or wav.shape[0] != 1:
+        raise AssertionError(f"{what}: wav of shape {wav.shape}")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+        raise AssertionError(f"{what}: wav not finite or outside [-1, 1]")
+    if not most / 2 <= seconds <= most:
+        raise AssertionError(f"{what}: {seconds:.3f} s of wav for {frames} "
+                             f"frames ({most:.3f} s)")
+
+
+def phase_cli(card, seed):
+    """The text -> wav path at full width: a model dir of the ZipVoice base
+    (published widths, random weights from ``seed``) and a random Vocos
+    from ``bin/make_model_dir.py``, loaded in bf16 through
+    ``load_model_dir`` and ``load_vocos``; ``generate_sentence``,
+    ``generate_raw`` and ``generate_stream`` in process with #1's launches
+    counted; then the CLI as a subprocess on a test list of an English and
+    a Chinese line.  Returns #1's launches in ``generate_sentence``."""
+    import shutil
+    import subprocess
+    import tempfile
+    import wave
+
+    import torch
+
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.frontend.audio import cross_fade_concat, save_wav
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    tmp = tempfile.mkdtemp(prefix="zipvoice_cli_")
+    try:
+        t = time.perf_counter()
+        make_model_dir(tmp, config=BASE_CONFIG, seed=seed, vocos_config={})
+        write_s = time.perf_counter() - t
+        model_mb = os.path.getsize(os.path.join(tmp, "model.pt")) / 2 ** 20
+        prompt = os.path.join(tmp, "prompt.wav")
+        save_wav(prompt, speech_like_wav(seed, seconds=3.0), 24000)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, tokenizer = load_model_dir(tmp, dtype=torch.bfloat16)
+        vocos = load_vocos(os.path.join(tmp, "pytorch_model.bin"),
+                           dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"CLI path: model dir written in {write_s:.2f} s (model.pt "
+              f"{model_mb:.1f} MiB, {n_params / 1e6:.1f}M params), "
+              f"load_model_dir + load_vocos in bf16 to the card in "
+              f"{load_s:.2f} s [{card}]", flush=True)
+        pipe = InferencePipeline(model, vocos, seed=seed, tokenizer=tokenizer)
+        num_step = 16
+        kw = dict(num_step=num_step, guidance_scale=1.0)
+        text_tokens = tokenizer.texts_to_tokens([CLI_TEXT])[0]
+        prompt_tokens = tokenizer.texts_to_tokens([CLI_PROMPT_TEXT])[0]
+        print(f"CLI path: prompt 3.00 s, {len(prompt_tokens)} prompt tokens, "
+              f"{len(text_tokens)} text tokens ({len(CLI_TEXT.split())} "
+              f"words)", flush=True)
+
+        def sentence():
+            return pipe.generate_sentence(CLI_PROMPT_TEXT, prompt, CLI_TEXT,
+                                          **kw)
+
+        sentence()  # first touch of the bucket, not counted
+        (wav, m), launches, _ = counted(card, "generate_sentence", model,
+                                        num_step, sentence)
+        check_wav("generate_sentence", wav, m["frames"])
+        print(f"generate_sentence: chunks of {m['chunk_tokens']} tokens, "
+              f"{m['frames']} frames, {m['wav_seconds']:.3f} s of wav; front "
+              f"end (prompt trim, fbank, tokens) {m['t_frontend']:.4f} s on "
+              f"the host; t {m['t']:.4f} s (t_no_vocoder "
+              f"{m['t_no_vocoder']:.4f}, t_vocoder {m['t_vocoder']:.4f}), "
+              f"rtf {m['rtf']:.4f}, bf16, {num_step} steps [{card}]",
+              flush=True)
+        if not any(T == 1280 for _, _, T in pipe._seen_buckets):
+            raise AssertionError(f"no micro-batch at the 1280-frame bucket: "
+                                 f"{pipe._seen_buckets}")
+        again = [sentence()[1] for _ in range(CLI_REPEATS)]
+        print(f"generate_sentence again, {CLI_REPEATS} runs: t "
+              f"{[round(r['t'], 4) for r in again]} s, t_frontend "
+              f"{[round(r['t_frontend'], 4) for r in again]} s [{card}]",
+              flush=True)
+
+        frames = []
+        inner = pipe._sample_batch
+
+        def keep_frames(*args, **kwargs):
+            feats, lens = inner(*args, **kwargs)
+            frames.extend(int(n) for n in lens)
+            return feats, lens
+
+        pipe._sample_batch = keep_frames
+        (raw, rm), _, _ = counted(
+            card, "generate_raw", model, num_step,
+            lambda: pipe.generate_raw(CLI_PROMPT_TEXT, prompt, CLI_TEXT,
+                                      **kw))
+        check_wav("generate_raw", raw, frames[-1])
+        print(f"generate_raw: {rm['wav_seconds']:.3f} s of wav, t "
+              f"{rm['t']:.4f} s, rtf {rm['rtf']:.4f} [{card}]", flush=True)
+
+        chunk_wavs = []
+        vocode = pipe._vocode_chunks
+
+        def keep_wavs(feats):
+            out = vocode(feats)
+            chunk_wavs.extend(out)
+            return out
+
+        pipe._vocode_chunks = keep_wavs
+        p_tok = tokenizer.texts_to_token_ids([CLI_PROMPT_TEXT])[0]
+        p_feat = pipe.feature_extractor.extract(
+            speech_like_wav(seed, seconds=3.0), 24000) * pipe.feat_scale
+        segs, _, stream_s = counted(
+            card, "generate_stream", model, num_step,
+            lambda: list(pipe.generate_stream(p_tok, p_feat, CLI_TEXT,
+                                              **kw)))
+        offline = cross_fade_concat([w[None] for w in chunk_wavs], 0.1,
+                                    24000)
+        got = sum(s.shape[-1] for s in segs)
+        print(f"generate_stream: {len(chunk_wavs)} chunk(s), {len(segs)} "
+              f"segments, {got} samples (offline cross-fade "
+              f"{offline.shape[-1]}), {stream_s:.4f} s [{card}]", flush=True)
+        if not all(np.isfinite(s).all() for s in segs):
+            raise AssertionError("generate_stream: non-finite segment")
+        if got != offline.shape[-1]:
+            raise AssertionError(f"generate_stream: {got} samples, offline "
+                                 f"{offline.shape[-1]}")
+        del model, vocos, pipe
+        torch.cuda.empty_cache()
+
+        res = os.path.join(tmp, "res")
+        test_list = os.path.join(tmp, "test.tsv")
+        with open(test_list, "w", encoding="utf-8") as f:
+            f.write(f"en\t{CLI_PROMPT_TEXT}\t{prompt}\t{CLI_TEXT}\n")
+            f.write(f"zh\t{CLI_PROMPT_TEXT}\t{prompt}\t{CLI_ZH_TEXT}\n")
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "zipvoice_torch.bin.infer_zipvoice",
+             "--model-dir", tmp, "--vocoder-path",
+             os.path.join(tmp, "pytorch_model.bin"), "--bf16",
+             "--test-list", test_list, "--res-dir", res],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t
+        log = [line for line in r.stderr.splitlines() if "rtf" in line]
+        print(f"CLI subprocess: exit {r.returncode} in {cli_s:.1f} s; "
+              + " | ".join(line.split(":", 2)[-1].strip() for line in log)
+              + f" [{card}]", flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"CLI failed:\n{r.stderr[-4000:]}")
+        if len(log) < 3:
+            raise AssertionError(f"CLI logged no rtf:\n{r.stderr[-4000:]}")
+        for name in ("en", "zh"):
+            with wave.open(os.path.join(res, name + ".wav"), "rb") as f:
+                if (f.getframerate(), f.getnchannels()) != (24000, 1) \
+                        or f.getnframes() == 0:
+                    raise AssertionError(f"CLI wav {name}: "
+                                         f"{f.getframerate()} Hz, "
+                                         f"{f.getnchannels()} channel(s), "
+                                         f"{f.getnframes()} frames")
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
 def print_tensor_core_use(names):
     """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
     warp's matrix transpose) in its SASS, from ``cuobjdump``."""
@@ -1116,6 +1357,8 @@ def main(argv=None) -> int:
     del vocos, req, bf16_out, f32_plain
     config_train = phase_config_train(card, args.seed, batch, f32_model,
                                       f32_pair_run)
+    del f32_model, f32_pair_run
+    cli_launches = phase_cli(card, args.seed)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -1170,6 +1413,8 @@ def main(argv=None) -> int:
         device_kernels=device, launches=launches[name],
         **{"library_ms": None, **measured[name]},
     ) for name, (src, tpu, device) in sources.items()]
+    # #1's launches in phase 11's generate_sentence, the CLI path
+    kernels[0]["launches_cli_path"] = cli_launches
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ directory's conftest, so that on a GPU machine without JAX they run with
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -550,3 +551,68 @@ def test_new_kernels_reject_what_they_are_not_built_for():
         with pytest.raises(ValueError):
             attention_apply(wts, torch.zeros(3, 4, 64, 16, device="cuda",
                                              dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_load_model_dir_on_the_card(tmp_path, dtype):
+    """``load_model_dir`` and ``load_vocos`` put every parameter on the
+    card: the Linear and Conv1d weights in the requested dtype, the rest
+    f32."""
+    from zipvoice_torch.bin.make_model_dir import (
+        TINY_CONFIG,
+        TINY_VOCOS,
+        make_model_dir,
+    )
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    _cuda()
+    make_model_dir(str(tmp_path), config=TINY_CONFIG,
+                   vocos_config=TINY_VOCOS)
+    model, _ = load_model_dir(str(tmp_path), dtype=dtype)
+    vocos = load_vocos(str(tmp_path / "pytorch_model.bin"), dtype=dtype)
+    for module in (model.fm_decoder, model.text_encoder, vocos.backbone):
+        for m in module.modules():
+            for p in m.parameters(recurse=False):
+                assert p.device.type == "cuda"
+                want = (dtype if isinstance(m, (torch.nn.Linear,
+                                                torch.nn.Conv1d))
+                        else torch.float32)
+                assert p.dtype == want, (m, p.dtype)
+    assert model.embed.weight.device.type == "cuda"
+    assert all(p.dtype == torch.float32 for p in vocos.head.parameters())
+
+
+@pytest.mark.gpu
+def test_cli_on_the_card(tmp_path):
+    """The CLI on the card (its default platform) with a tiny model dir:
+    exit 0, a finite 24 kHz wav, and a text long enough that the top
+    level's 768 frames pass the attention kernel's gate."""
+    from zipvoice_torch.bin.infer_zipvoice import main
+    from zipvoice_torch.bin.make_model_dir import (
+        TINY_CONFIG,
+        TINY_VOCOS,
+        make_model_dir,
+    )
+    from zipvoice_torch.frontend.audio import load_wav, save_wav
+    from zipvoice_torch.infer.workload import speech_like_wav
+
+    _cuda()
+    make_model_dir(str(tmp_path), config=TINY_CONFIG,
+                   vocos_config=TINY_VOCOS)
+    prompt = str(tmp_path / "prompt.wav")
+    save_wav(prompt, speech_like_wav(1, seconds=2.0), 24000)
+    out = str(tmp_path / "out.wav")
+    before = rel_pos_attention_weights.launches
+    assert main([
+        "--model-dir", str(tmp_path), "--vocoder-path",
+        str(tmp_path / "pytorch_model.bin"), "--prompt-wav", prompt,
+        "--prompt-text", "Hi, there, my friend.", "--text",
+        "We walked along the quiet river at dawn, and then the birds "
+        "began to sing above us in the tall trees.", "--num-step", "2",
+        "--res-wav-path", out, "--bf16",
+    ]) == 0
+    assert rel_pos_attention_weights.launches > before
+    wav = load_wav(out, 24000)
+    assert wav.shape[0] == 1 and wav.shape[1] > 0
+    assert np.isfinite(wav).all()

@@ -58,22 +58,27 @@ def test_vocos_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every zipvoice_torch module, the training step and every
-    kernel wrapper among them, leaves jax, the JAX package and tools/ out
-    of sys.modules."""
+    """Importing every zipvoice_torch module, the training step, every
+    kernel wrapper, the front end and the CLI among them, leaves jax, the
+    JAX package, tools/ and egs/ out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys, zipvoice_torch\n"
         "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
         " 'zipvoice_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'zipvoice_tpu', 'tools'))\n"
+        " ('jax', 'jaxlib', 'flax', 'zipvoice_tpu', 'tools', 'egs'))\n"
         "assert not bad, bad\n"
         "need = {'zipvoice_torch.train.train_step',"
         " 'zipvoice_torch.train.optim', 'zipvoice_torch.ops.schedule',"
         " 'zipvoice_torch.ops.scaling',"
         " 'zipvoice_torch.kernels.rel_pos_attention',"
-        " 'zipvoice_torch.kernels.depthwise_conv'}\n"
+        " 'zipvoice_torch.kernels.depthwise_conv',"
+        " 'zipvoice_torch.frontend.tokenizer', 'zipvoice_torch.frontend.g2p',"
+        " 'zipvoice_torch.frontend.en_g2p', 'zipvoice_torch.frontend.zh_g2p',"
+        " 'zipvoice_torch.frontend.feature', 'zipvoice_torch.frontend.audio',"
+        " 'zipvoice_torch.utils.checkpoint_io',"
+        " 'zipvoice_torch.bin.infer_zipvoice'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"

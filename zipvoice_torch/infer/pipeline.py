@@ -1,20 +1,42 @@
-"""Batched zero-shot TTS inference: the micro-batch path of the pipeline
-(counterpart of ``zipvoice_tpu/infer/pipeline.py``).
+"""Zero-shot TTS inference pipeline (counterpart of
+``zipvoice_tpu/infer/pipeline.py``).
+
+``generate_sentence`` follows the reference's flow (reference
+zipvoice/bin/infer_zipvoice.py:437-641): prompt silence-strip -> rms norm
+-> fbank x0.1 -> punctuation chunking (~25 s windows) -> duration-bounded
+batch packing -> flow-matching sampling -> vocoder -> cross-fade merge ->
+edge silence trim.  ``generate_raw`` is the single-call evaluation path and
+``generate_stream`` yields cross-faded segments chunk by chunk.
 
 Token and frame lengths snap to the same bucket ladders as the JAX package,
 so the two dispatch identical shapes, and noise comes from the pipeline's
 seeded ``np.random.RandomState`` exactly as there: the same seed gives the
-same noise.  The text/wav front end (``generate_sentence`` and friends)
-is not ported yet.
+same noise.  The front end (tokenizer, fbank, silence trim, cross-fade)
+runs on the host; sampling and vocoding run on the pipeline's device, and
+each micro-batch ends in a copy to the host, so the time stamps around
+them hold the device's work.
 """
 
 import logging
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from zipvoice_torch.frontend.audio import (
+    cross_fade_concat,
+    load_wav,
+    remove_silence,
+    rms_norm,
+)
 from zipvoice_torch.frontend.batch import bucket_length, pad_tokens
+from zipvoice_torch.frontend.feature import VocosFbank
+from zipvoice_torch.frontend.text_chunking import (
+    add_punctuation,
+    batchify_tokens,
+    chunk_tokens_punctuation,
+)
 from zipvoice_torch.models.zipvoice import strip_prompt
 from zipvoice_torch.utils.device import resolve_device
 
@@ -25,14 +47,199 @@ BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 class InferencePipeline:
     def __init__(self, model, vocoder, sampling_rate: int = 24000,
-                 feat_scale: float = 0.1, seed: int = 0, device="cuda"):
+                 feat_scale: float = 0.1, seed: int = 0, device="cuda",
+                 tokenizer=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
+        self.tokenizer = tokenizer
         self.sampling_rate = sampling_rate
         self.feat_scale = feat_scale
+        self.feature_extractor = VocosFbank()
         self.rng = np.random.RandomState(seed)
         self._seen_buckets = set()
+
+    def _prompt(self, prompt_wav_path: str, target_rms: float,
+                trim: bool):
+        """(prompt features x feat_scale, prompt rms, prompt seconds) of a
+        prompt wav, its silences removed first when ``trim``."""
+        sr = self.sampling_rate
+        prompt_wav = load_wav(prompt_wav_path, sr)
+        if trim:
+            prompt_wav = remove_silence(prompt_wav, sr, only_edge=False,
+                                        trail_sil=200)
+        prompt_wav, prompt_rms = rms_norm(prompt_wav, target_rms)
+        features = (self.feature_extractor.extract(prompt_wav, sr)
+                    * self.feat_scale)
+        return features, prompt_rms, prompt_wav.shape[-1] / sr
+
+    def generate_sentence(self, prompt_text: str, prompt_wav_path: str,
+                          text: str, num_step: int = 16,
+                          guidance_scale: float = 1.0, speed: float = 1.0,
+                          t_shift: float = 0.5, target_rms: float = 0.1,
+                          max_duration: float = 100.0,
+                          remove_long_sil: bool = False):
+        """Returns (wav (C, T) float32, metrics dict).  Besides the JAX
+        package's metrics, ``t_frontend`` is the host seconds of the prompt
+        and text preparation, ``chunk_tokens`` the token count of each
+        chunk, and ``frames`` the generated frames over all chunks."""
+        t_front = time.perf_counter()
+        sr = self.sampling_rate
+        prompt_features, prompt_rms, prompt_duration = self._prompt(
+            prompt_wav_path, target_rms, trim=True
+        )
+        if prompt_duration > 10:
+            logging.warning(
+                f"prompt is long ({prompt_duration:.1f}s); 1-3 s recommended"
+            )
+
+        text = add_punctuation(text)
+        prompt_text = add_punctuation(prompt_text)
+        tokens_str = self.tokenizer.texts_to_tokens([text])[0]
+        prompt_tokens_str = self.tokenizer.texts_to_tokens([prompt_text])[0]
+
+        token_duration = prompt_duration / (len(prompt_tokens_str) * speed)
+        max_tokens = max(4, int((25 - prompt_duration) / token_duration))
+        chunked_tokens_str = chunk_tokens_punctuation(
+            tokens_str, max_tokens=max_tokens
+        )
+        chunked_tokens = self.tokenizer.tokens_to_token_ids(chunked_tokens_str)
+        prompt_tokens = self.tokenizer.tokens_to_token_ids(
+            [prompt_tokens_str]
+        )[0]
+
+        tokens_batches, chunked_index = batchify_tokens(
+            chunked_tokens, max_duration, prompt_duration, token_duration
+        )
+
+        start_t = time.perf_counter()
+        chunked_feats: List[np.ndarray] = []
+        for batch_tokens in tokens_batches:
+            feats, feats_lens = self._sample_batch(
+                batch_tokens, prompt_tokens, prompt_features,
+                num_step=num_step, guidance_scale=guidance_scale,
+                speed=speed, t_shift=t_shift,
+            )
+            for i in range(len(batch_tokens)):
+                chunked_feats.append(feats[i, : feats_lens[i]])
+
+        start_vocoder_t = time.perf_counter()
+        chunked_wavs = self._vocode_chunks(chunked_feats)
+        t = time.perf_counter() - start_t
+
+        if prompt_rms < target_rms:
+            chunked_wavs = [w * prompt_rms / target_rms for w in chunked_wavs]
+
+        order = sorted(range(len(chunked_wavs)),
+                       key=lambda i: chunked_index[i])
+        seq_wavs = [chunked_wavs[i][None] for i in order]
+        final_wav = cross_fade_concat(seq_wavs, fade_duration=0.1,
+                                      sample_rate=sr)
+        final_wav = remove_silence(
+            final_wav, sr, only_edge=(not remove_long_sil), trail_sil=0
+        )
+
+        t_no_vocoder = start_vocoder_t - start_t
+        t_vocoder = t - t_no_vocoder
+        wav_seconds = final_wav.shape[-1] / sr
+        metrics = {
+            "t": t,
+            "t_no_vocoder": t_no_vocoder,
+            "t_vocoder": t_vocoder,
+            "wav_seconds": wav_seconds,
+            "rtf": t / max(wav_seconds, 1e-9),
+            "rtf_no_vocoder": t_no_vocoder / max(wav_seconds, 1e-9),
+            "rtf_vocoder": t_vocoder / max(wav_seconds, 1e-9),
+            "t_frontend": start_t - t_front,
+            "chunk_tokens": [len(c) for c in chunked_tokens],
+            "frames": sum(f.shape[0] for f in chunked_feats),
+        }
+        return final_wav, metrics
+
+    def generate_stream(self, prompt_tokens: List[int],
+                        prompt_features: np.ndarray, text: str,
+                        num_step: int = 16, guidance_scale: float = 1.0,
+                        speed: float = 1.0, t_shift: float = 0.5,
+                        prompt_rms: float = 0.1, target_rms: float = 0.1,
+                        fade_duration: float = 0.1):
+        """Stream wav segments as text chunks are synthesized.
+
+        Chunks run one at a time (B=1), so the first audio arrives after a
+        single sample + vocode round, and the linear cross-fade of
+        ``cross_fade_concat`` is applied incrementally: the yielded
+        segments concatenate to the offline result.  ``prompt_tokens`` and
+        ``prompt_features`` are a prepared prompt (features already
+        feat-scaled)."""
+        sr = self.sampling_rate
+        prompt_duration = prompt_features.shape[0] * 256 / sr
+        text = add_punctuation(text)
+        tokens_str = self.tokenizer.texts_to_tokens([text])[0]
+        token_duration = prompt_duration / (len(prompt_tokens) * speed)
+        max_tokens = max(4, int((25 - prompt_duration) / token_duration))
+        chunked_tokens = self.tokenizer.tokens_to_token_ids(
+            chunk_tokens_punctuation(tokens_str, max_tokens=max_tokens)
+        )
+
+        fade = int(fade_duration * sr)
+        carry: Optional[np.ndarray] = None
+        gain = prompt_rms / target_rms if prompt_rms < target_rms else 1.0
+        for tok in chunked_tokens:
+            feats, lens = self._sample_batch(
+                [tok], prompt_tokens, prompt_features,
+                num_step=num_step, guidance_scale=guidance_scale,
+                speed=speed, t_shift=t_shift,
+            )
+            wav = self._vocode_chunks([feats[0, : lens[0]]])[0][None] * gain
+            if carry is None:
+                merged = wav
+            else:
+                k = min(fade, carry.shape[-1], wav.shape[-1])
+                if k > 0:
+                    ramp = np.linspace(1.0, 0.0, k, dtype=wav.dtype)[None]
+                    merged = np.concatenate(
+                        [carry[..., :-k],
+                         carry[..., -k:] * ramp + wav[..., :k] * (1 - ramp),
+                         wav[..., k:]], axis=-1,
+                    )
+                else:
+                    merged = np.concatenate([carry, wav], axis=-1)
+            if merged.shape[-1] > fade:
+                yield merged[..., :-fade]
+                carry = merged[..., -fade:]
+            else:
+                carry = merged
+        if carry is not None and carry.shape[-1]:
+            yield carry
+
+    def generate_raw(self, prompt_text: str, prompt_wav_path: str,
+                     text: str, num_step: int = 16,
+                     guidance_scale: float = 1.0, speed: float = 1.0,
+                     t_shift: float = 0.5, target_rms: float = 0.1):
+        """Raw-evaluation path (reference infer_zipvoice.py:315-434): no
+        silence removal, no chunking, no cross-fade; a single sample call,
+        for objective benchmark comparability."""
+        prompt_features, prompt_rms, _ = self._prompt(
+            prompt_wav_path, target_rms, trim=False
+        )
+        tokens = self.tokenizer.texts_to_token_ids([text])[0]
+        prompt_tokens = self.tokenizer.texts_to_token_ids([prompt_text])[0]
+
+        start_t = time.perf_counter()
+        feats, lens = self._sample_batch(
+            [tokens], prompt_tokens, prompt_features,
+            num_step=num_step, guidance_scale=guidance_scale,
+            speed=speed, t_shift=t_shift,
+        )
+        wav = self._vocode_chunks([feats[0, : lens[0]]])[0][None]
+        if prompt_rms < target_rms:
+            wav = wav * prompt_rms / target_rms
+        t = time.perf_counter() - start_t
+        wav_seconds = wav.shape[-1] / self.sampling_rate
+        return wav, {
+            "t": t,
+            "wav_seconds": wav_seconds,
+            "rtf": t / max(wav_seconds, 1e-9),
+        }
 
     def warm_bucket(self, B: int, S: int, T: int, num_step: int,
                     guidance_scale: float, t_shift: float = 0.5) -> None:

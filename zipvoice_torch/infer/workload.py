@@ -73,3 +73,27 @@ def run_request(pipe, req, num_step: int):
     feats, lens = sample(pipe, req, num_step)
     wavs = pipe._vocode_chunks([feats[i, :n] for i, n in enumerate(lens)])
     return feats, lens, wavs
+
+
+def speech_like_wav(seed: int, seconds: float = 3.0, sr: int = 24000,
+                    amplitude: float = 0.08, edge_silence: float = 0.3
+                    ) -> np.ndarray:
+    """A (1, n) prompt waveform made from ``seed``: a harmonic voice at a
+    gliding pitch with syllable-rate amplitude modulation and a low noise
+    floor, with ``edge_silence`` s of silence at each end.  At the default
+    amplitude its rms is below 0.1, so the pipeline's ``rms_norm`` raises
+    it, and its silent edges are long enough for ``remove_silence`` to
+    cut."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.7 * t + rng.uniform(0, 6.3))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(rng.uniform(0.3, 1.0) / h * np.sin(h * phase)
+                for h in range(1, 6))
+    envelope = np.clip(np.sin(2 * np.pi * 4.0 * t + rng.uniform(0, 6.3)),
+                       0.05, None)
+    x = amplitude * voice * envelope + 0.001 * rng.randn(len(t))
+    edge = int(edge_silence * sr)
+    x[:edge] = 0.0
+    x[len(x) - edge:] = 0.0
+    return x.astype(np.float32)[None]

@@ -1,0 +1,116 @@
+"""Load reference-layout checkpoints into the port (counterpart of
+``zipvoice_tpu/utils/checkpoint_io.py``: ``load_torch_state_dict``,
+``load_model_dir`` and ``load_vocos``).
+
+The reference distributes models as ``{model_dir}/model.pt, model.json,
+tokens.txt`` (reference zipvoice/bin/infer_zipvoice.py:757-816), optionally
+``model.safetensors``; the port's modules use that key layout, so a file
+loads with ``strict=True`` and no conversion.  The modules are built on the
+meta device and take the loaded CPU tensors as their parameters, so the
+weights are held once on the host before they move to the device.  The
+training checkpoint (save and resume) is not ported yet.
+"""
+
+import json
+import logging
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from zipvoice_torch.frontend.tokenizer import EmiliaTokenizer
+from zipvoice_torch.models.zipformer import set_compute_dtype
+from zipvoice_torch.models.zipvoice import ZipVoice, ZipVoiceDistill
+from zipvoice_torch.utils.device import resolve_device
+from zipvoice_torch.vocoder.vocos import Vocos, build_vocos
+
+MODEL_CLASSES = {"zipvoice": ZipVoice, "zipvoice_distill": ZipVoiceDistill}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pt`` (with or without a ``"model"`` key) or ``.safetensors``
+    file -> a flat ``state_dict`` of CPU tensors."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path, device="cpu")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    return dict(ckpt)
+
+
+def _load_into(module_fn, state_dict):
+    """``module_fn()`` built on the meta device, with the tensors of
+    ``state_dict`` as its parameters (a strict load)."""
+    with torch.device("meta"):
+        module = module_fn()
+    module.load_state_dict(state_dict, strict=True, assign=True)
+    return module
+
+
+def load_model_dir(model_dir: str, model_name: str = "zipvoice",
+                   dtype: torch.dtype = torch.float32, device="cuda"
+                   ) -> Tuple[ZipVoice, EmiliaTokenizer]:
+    """(model, tokenizer) from a reference-layout model dir:
+    model.pt|model.safetensors + model.json + tokens.txt.  The model is
+    built from model.json, loads the checkpoint with ``strict=True``, then
+    computes its matmuls and convs in ``dtype`` and moves to ``device``
+    (CUDA unless the caller asks for the CPU)."""
+    if model_name in ("zipvoice_dialog", "zipvoice_dialog_stereo"):
+        raise NotImplementedError(
+            f"{model_name} is not ported to zipvoice_torch yet (ROADMAP A5: "
+            "dialog and stereo)"
+        )
+    cls = MODEL_CLASSES[model_name]
+    device = resolve_device(device)
+    with open(os.path.join(model_dir, "model.json")) as f:
+        model_config = json.load(f)["model"]
+    tokenizer = EmiliaTokenizer(os.path.join(model_dir, "tokens.txt"))
+
+    ckpt_path = os.path.join(model_dir, "model.pt")
+    if not os.path.exists(ckpt_path):
+        ckpt_path = os.path.join(model_dir, "model.safetensors")
+    model = _load_into(
+        lambda: cls(**model_config, vocab_size=tokenizer.vocab_size,
+                    pad_id=tokenizer.pad_id),
+        load_torch_state_dict(ckpt_path),
+    )
+    for backbone in (model.fm_decoder, model.text_encoder):
+        set_compute_dtype(backbone, dtype)
+    return model.to(device).eval(), tokenizer
+
+
+def vocos_config(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The Vocos widths of a published-layout ``state_dict``."""
+    embed = state_dict["backbone.embed.weight"]  # (dim, n_mels, 7)
+    num_layers = 0
+    while f"backbone.convnext.{num_layers}.gamma" in state_dict:
+        num_layers += 1
+    return dict(
+        n_mels=embed.shape[1], dim=embed.shape[0],
+        intermediate_dim=state_dict[
+            "backbone.convnext.0.pwconv1.weight"].shape[0],
+        num_layers=num_layers,
+        n_fft=state_dict["head.out.weight"].shape[0] - 2,
+    )
+
+
+def load_vocos(path: Optional[str], dtype: torch.dtype = torch.float32,
+               device="cuda") -> Vocos:
+    """The Vocos vocoder from a published ``pytorch_model.bin`` (its
+    widths read from the file; the file's STFT and mel buffers, which the
+    port computes itself, are left out), or with ``build_vocos``'s seeded
+    random weights when ``path`` is None."""
+    if not path:
+        logging.warning(
+            "no --vocoder-path: vocoder is RANDOMLY initialized; output "
+            "audio will be noise (features are still valid)"
+        )
+        return build_vocos(device=device, dtype=dtype)
+    device = resolve_device(device)
+    sd = {k: v for k, v in load_torch_state_dict(path).items()
+          if k.startswith(("backbone.", "head.out."))}
+    vocos = _load_into(lambda: Vocos(**vocos_config(sd)), sd)
+    set_compute_dtype(vocos.backbone, dtype)
+    return vocos.to(device).eval()
