@@ -76,7 +76,22 @@ are built for sm_90a).  Phases, each of which must pass:
    chunks); then the CLI as a subprocess on a test list of an English line
    and a Chinese line with a <pinyin> tag: exit 0, two 24 kHz wavs, rtf
    logged.  Prints the write and load times, the front end's host time,
-   ``t``, ``t_no_vocoder``, ``t_vocoder`` and the rtf.
+   ``t``, ``t_no_vocoder``, ``t_vocoder`` and the rtf;
+12. the dialog models: write model dirs of ZipVoice-Dialog and
+   ZipVoice-Dialog-Stereo at the published widths with random weights (the
+   Emilia vocabulary with [S1] and [S2]), synthesize two 3 s prompt wavs of
+   two speakers, load each model in bf16 and run a three-turn dialog text
+   through ``DialogInferencePipeline.generate_dialog`` (the two prompts
+   merged) and ``StereoDialogInferencePipeline.generate_dialog_stereo``
+   (the two prompts on opposite channels), each in the 1280-frame bucket
+   with #1's launches equal to what the gates predict and above 0, the mono
+   wav checked as phase 11's and the stereo wav (2, n), finite, within
+   [-1, 1], both channels non-silent; then the stereo request in f32 (TF32
+   off) with #1 and on the plain path, its (T, 200) features within
+   PATH_ATOL; then ``bin/infer_zipvoice_dialog`` in process for the mono
+   model and as a subprocess on a six-field test list for the stereo one:
+   exit 0, 24 kHz wavs of one and two channels, rtf logged.  Prints the
+   load times, the front end's host time, ``t``, ``t_vocoder`` and the rtf.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -1272,6 +1287,239 @@ def phase_cli(card, seed):
     return launches
 
 
+# phase 12: two speakers' 3 s prompts (about 2.8 s each once trimmed, 93
+# prompt tokens with the turns) and a three-turn text of 105 tokens: one
+# chunk, which lands in the 1280-frame bucket in both models (mono: the 5.6 s
+# merged prompt and about 580 frames; stereo: the 6 s two-channel prompt and
+# about 640), where #1 runs at the top two levels
+DIALOG_PROMPT_TEXTS = ["The birch canoe slid on the smooth planks.",
+                       "Glue the sheet to the dark blue background."]
+DIALOG_TEXT = ("[S1] Did you see the river this morning? [S2] I did, the "
+               "water was high after the rain. [S1] Then we should wait a "
+               "day.")
+
+
+def check_stereo_wav(what, wav, frames):
+    """Two finite channels within [-1, 1], neither silent, as long as the
+    ``frames`` the model generated."""
+    if wav.ndim != 2 or wav.shape != (2, frames * 256):
+        raise AssertionError(f"{what}: wav of shape {wav.shape} for {frames} "
+                             f"frames")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+        raise AssertionError(f"{what}: wav not finite or outside [-1, 1]")
+    rms = np.sqrt(np.mean(np.square(wav), axis=1))
+    if not (rms > 1e-4).all():
+        raise AssertionError(f"{what}: a silent channel (rms {rms})")
+
+
+def run_dialog_cli(argv):
+    """``bin/infer_zipvoice_dialog.main(argv)`` in this process, its log
+    records kept: (exit code, the log's lines)."""
+    import logging
+
+    from zipvoice_torch.bin.infer_zipvoice_dialog import main as cli_main
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    keep, root = Keep(), logging.getLogger()
+    level = root.level
+    root.addHandler(keep)
+    root.setLevel(logging.INFO)
+    try:
+        rc = cli_main(argv)
+    finally:
+        root.removeHandler(keep)
+        root.setLevel(level)
+    return rc, keep.lines
+
+
+def read_wav_header(path):
+    import wave
+
+    with wave.open(path, "rb") as f:
+        return f.getframerate(), f.getnchannels(), f.getnframes()
+
+
+def phase_dialog(card, seed):
+    """ZipVoice-Dialog and ZipVoice-Dialog-Stereo at full width: model dirs
+    from ``bin/make_model_dir.py``, loaded in bf16 through
+    ``load_model_dir``; ``generate_dialog`` and ``generate_dialog_stereo``
+    with #1's launches counted; the stereo request in f32 with #1 and on
+    the plain path; then the dialog CLI in process (mono) and as a
+    subprocess (stereo).  Returns #1's launches in the two requests."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.infer.dialog_pipeline import (
+        DialogInferencePipeline,
+        StereoDialogInferencePipeline,
+    )
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.models.zipformer import set_attention_kernel
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    tmp = tempfile.mkdtemp(prefix="zipvoice_dialog_")
+    num_step = 16
+    kw = dict(num_step=num_step, guidance_scale=1.5)
+    launches = {}
+    try:
+        mono_dir = os.path.join(tmp, "zipvoice_dialog")
+        stereo_dir = os.path.join(tmp, "zipvoice_dialog_stereo")
+        vocos_path = os.path.join(mono_dir, "pytorch_model.bin")
+        t = time.perf_counter()
+        make_model_dir(mono_dir, "zipvoice_dialog", config=BASE_CONFIG,
+                       seed=seed, vocos_config={})
+        make_model_dir(stereo_dir, "zipvoice_dialog_stereo",
+                       config=BASE_CONFIG, seed=seed + 1)
+        write_s = time.perf_counter() - t
+        prompts = [os.path.join(tmp, f"speaker{i + 1}.wav") for i in (0, 1)]
+        for i, path in enumerate(prompts):
+            save_wav(path, speech_like_wav(seed + 11 + i, seconds=3.0), 24000)
+        print(f"dialog path: two model dirs written in {write_s:.2f} s; "
+              f"prompts 2 x 3.00 s", flush=True)
+
+        def load(name, model_dir, dtype):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model, tokenizer = load_model_dir(model_dir, name, dtype=dtype)
+            torch.cuda.synchronize()
+            return model, tokenizer, time.perf_counter() - t
+
+        vocos = load_vocos(vocos_path, dtype=torch.bfloat16)
+        for name, model_dir, cls in (
+                ("zipvoice_dialog", mono_dir, DialogInferencePipeline),
+                ("zipvoice_dialog_stereo", stereo_dir,
+                 StereoDialogInferencePipeline)):
+            model, tokenizer, load_s = load(name, model_dir, torch.bfloat16)
+            n_params = sum(p.numel() for p in model.parameters())
+            pipe = cls(model, vocos, seed=seed, tokenizer=tokenizer)
+            stereo = cls is StereoDialogInferencePipeline
+            generate = (pipe.generate_dialog_stereo if stereo
+                        else pipe.generate_dialog)
+
+            def request():
+                return generate(DIALOG_PROMPT_TEXTS, prompts, DIALOG_TEXT,
+                                **kw)
+
+            request()  # first touch of the bucket, not counted
+            (wav, m), n, _ = counted(card, name, model, num_step, request)
+            launches[name] = n
+            if not any(T == 1280 for _, _, T in pipe._seen_buckets):
+                raise AssertionError(f"{name}: no request at the 1280-frame "
+                                     f"bucket: {pipe._seen_buckets}")
+            if stereo:
+                check_stereo_wav(name, wav, m["frames"])
+            else:
+                check_wav(name, wav, m["frames"])
+            print(f"{name}: load_model_dir in bf16 to the card {load_s:.2f} "
+                  f"s ({n_params / 1e6:.1f}M params); chunks of "
+                  f"{m['chunk_tokens']} tokens, {m['frames']} frames, wav "
+                  f"{wav.shape}, {m['wav_seconds']:.3f} s; front end "
+                  f"{m['t_frontend'] * 1e3:.1f} ms on the host; t "
+                  f"{m['t']:.4f} s (t_vocoder {m['t_vocoder']:.4f}), rtf "
+                  f"{m['rtf']:.4f}, bf16, {num_step} steps [{card}]",
+                  flush=True)
+            del model, pipe
+            torch.cuda.empty_cache()
+
+        # the stereo request in f32 with #1 and on the plain path
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model, tokenizer, _ = load("zipvoice_dialog_stereo", stereo_dir,
+                                   torch.float32)
+        feats = {}
+        for use_kernel in (True, False):
+            set_attention_kernel(model, use_kernel)
+            pipe = StereoDialogInferencePipeline(model, vocos, seed=seed,
+                                                 tokenizer=tokenizer)
+            inner = pipe._sample_batch
+
+            def keep(*args, _inner=inner, _on=use_kernel, **kwargs):
+                f, lens = _inner(*args, **kwargs)
+                feats[_on] = f[0, : lens[0]]
+                return f, lens
+
+            pipe._sample_batch = keep
+            pipe.generate_dialog_stereo(DIALOG_PROMPT_TEXTS, prompts,
+                                        DIALOG_TEXT, **kw)
+        if feats[True].shape != feats[False].shape:
+            raise AssertionError(f"stereo f32 shapes {feats[True].shape} "
+                                 f"and {feats[False].shape}")
+        d = float(np.abs(feats[True] - feats[False]).max())
+        print(f"zipvoice_dialog_stereo f32, TF32 off: features "
+              f"{feats[True].shape} with #1 vs the plain path, mel max|d| "
+              f"{d:.3e} (tol {PATH_ATOL:.0e}) [{card}]", flush=True)
+        if not d <= PATH_ATOL:
+            raise AssertionError(f"stereo kernel path disagrees: {d}")
+        del model, pipe
+        torch.cuda.empty_cache()
+
+        # the CLI: mono in this process, stereo as a subprocess
+        out = os.path.join(tmp, "mono.wav")
+        t = time.perf_counter()
+        rc, log = run_dialog_cli([
+            "--model-name", "zipvoice_dialog", "--model-dir", mono_dir,
+            "--vocoder-path", vocos_path, "--bf16",
+            "--prompt-text-1", DIALOG_PROMPT_TEXTS[0],
+            "--prompt-wav-1", prompts[0],
+            "--prompt-text-2", DIALOG_PROMPT_TEXTS[1],
+            "--prompt-wav-2", prompts[1], "--text", DIALOG_TEXT,
+            "--res-wav-path", out])
+        mono_s = time.perf_counter() - t
+        rtf = [line for line in log if "rtf" in line]
+        print(f"dialog CLI in process (zipvoice_dialog): exit {rc} in "
+              f"{mono_s:.1f} s; " + " | ".join(rtf) + f" [{card}]",
+              flush=True)
+        if rc != 0 or not rtf:
+            raise AssertionError(f"dialog CLI: exit {rc}, log {log}")
+        if read_wav_header(out)[:2] != (24000, 1):
+            raise AssertionError(f"dialog CLI wav {read_wav_header(out)}")
+
+        res = os.path.join(tmp, "res")
+        test_list = os.path.join(tmp, "dialog.tsv")
+        with open(test_list, "w", encoding="utf-8") as f:
+            f.write("\t".join(["stereo", *DIALOG_PROMPT_TEXTS, *prompts,
+                               DIALOG_TEXT]) + "\n")
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "zipvoice_torch.bin.infer_zipvoice_dialog",
+             "--model-name", "zipvoice_dialog_stereo", "--model-dir",
+             stereo_dir, "--vocoder-path", vocos_path, "--bf16",
+             "--test-list", test_list, "--res-dir", res],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t
+        log = [line for line in r.stderr.splitlines() if "rtf" in line]
+        print(f"dialog CLI subprocess (zipvoice_dialog_stereo): exit "
+              f"{r.returncode} in {cli_s:.1f} s; "
+              + " | ".join(line.split(":", 2)[-1].strip() for line in log)
+              + f" [{card}]", flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"dialog CLI failed:\n{r.stderr[-4000:]}")
+        if len(log) < 2:
+            raise AssertionError(f"dialog CLI logged no rtf:\n"
+                                 f"{r.stderr[-4000:]}")
+        sr, ch, n = read_wav_header(os.path.join(res, "stereo.wav"))
+        if (sr, ch) != (24000, 2) or n == 0:
+            raise AssertionError(f"dialog CLI stereo wav: {sr} Hz, {ch} "
+                                 f"channel(s), {n} frames")
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
 def print_tensor_core_use(names):
     """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
     warp's matrix transpose) in its SASS, from ``cuobjdump``."""
@@ -1319,6 +1567,7 @@ def main(argv=None) -> int:
     from zipvoice_torch.infer.workload import card_identity
     from zipvoice_torch.kernels import _build
 
+    start = time.perf_counter()
     card = card_identity()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
@@ -1359,6 +1608,7 @@ def main(argv=None) -> int:
                                       f32_pair_run)
     del f32_model, f32_pair_run
     cli_launches = phase_cli(card, args.seed)
+    dialog_launches = phase_dialog(card, args.seed)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -1413,8 +1663,14 @@ def main(argv=None) -> int:
         device_kernels=device, launches=launches[name],
         **{"library_ms": None, **measured[name]},
     ) for name, (src, tpu, device) in sources.items()]
-    # #1's launches in phase 11's generate_sentence, the CLI path
+    # #1's launches in phase 11's generate_sentence, the CLI path, and in
+    # phase 12's two dialog requests
     kernels[0]["launches_cli_path"] = cli_launches
+    kernels[0]["launches_dialog_path"] = dialog_launches["zipvoice_dialog"]
+    kernels[0]["launches_dialog_stereo_path"] = dialog_launches[
+        "zipvoice_dialog_stereo"]
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - start:.1f} s",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

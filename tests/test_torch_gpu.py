@@ -616,3 +616,99 @@ def test_cli_on_the_card(tmp_path):
     wav = load_wav(out, 24000)
     assert wav.shape[0] == 1 and wav.shape[1] > 0
     assert np.isfinite(wav).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zipvoice_dialog", "zipvoice_dialog_stereo"])
+def test_load_dialog_model_dir_on_the_card(tmp_path, name):
+    """``load_model_dir`` puts the dialog models on the card in bf16: the
+    Linear and Conv1d weights (the stereo model's two projection pairs
+    among them) bf16, the rest f32, and the [S1]/[S2] ids from the
+    tokenizer."""
+    from zipvoice_torch.bin.make_model_dir import TINY_CONFIG, make_model_dir
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir
+
+    _cuda()
+    make_model_dir(str(tmp_path), name, config=TINY_CONFIG)
+    model, tok = load_model_dir(str(tmp_path), name, dtype=torch.bfloat16)
+    assert (model.spk_a_id, model.spk_b_id) == (tok.spk_a_id, tok.spk_b_id)
+    for module in (model.fm_decoder, model.text_encoder):
+        for m in module.modules():
+            for p in m.parameters(recurse=False):
+                assert p.device.type == "cuda"
+                want = (torch.bfloat16 if isinstance(m, (torch.nn.Linear,
+                                                         torch.nn.Conv1d))
+                        else torch.float32)
+                assert p.dtype == want, (m, p.dtype)
+    assert model.spk_embed.weight.device.type == "cuda"
+    assert model.spk_embed.weight.dtype == torch.float32
+    stereo = name.endswith("stereo")
+    assert isinstance(model.fm_decoder.in_proj, torch.nn.ModuleList) == stereo
+
+
+def _stereo_sample(dtype, use_kernel, num_step=2, T=1280, seed=0):
+    """A tiny ZipVoice-Dialog-Stereo's ``sample`` of one two-channel
+    (T, 2F) request on the card: (features, #1's launches)."""
+    from zipvoice_torch.bin.make_model_dir import TINY_CONFIG
+    from zipvoice_torch.models.dialog import ZipVoiceDialogStereo
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+
+    model = build_zipvoice(model_class=ZipVoiceDialogStereo, dtype=dtype,
+                           seed=seed, vocab_size=40, spk_a_id=38,
+                           spk_b_id=39, **TINY_CONFIG)
+    set_attention_kernel(model, use_kernel)
+    F = 2 * model.feat_dim
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(1, 38, (1, 64), generator=g, device="cuda")
+    tokens[0, [0, 20, 41]] = torch.tensor([38, 39, 38], device="cuda")
+    tokens[0, -1] = 0
+    prompt = torch.zeros(1, T, F, device="cuda")
+    prompt[0, :300] = torch.randn(300, F, generator=g, device="cuda")
+    lens = torch.tensor([T], device="cuda")
+    before = rel_pos_attention_weights.launches
+    x1, _ = model.sample(
+        tokens=tokens, tokens_lens=torch.tensor([63], device="cuda"),
+        prompt_tokens_lens=torch.tensor([20], device="cuda"),
+        prompt_features=prompt,
+        prompt_features_lens=torch.tensor([300], device="cuda"),
+        features_lens=lens,
+        noise=torch.randn(1, T, F, generator=g, device="cuda"),
+        num_step=num_step, guidance_scale=1.5,
+    )
+    torch.cuda.synchronize()
+    return model, x1, rel_pos_attention_weights.launches - before
+
+
+@pytest.mark.gpu
+def test_stereo_sample_launches_the_kernel():
+    """The stereo model's two-stream decoder at T=1280 in bf16 launches #1
+    once per decoder call at every layer whose level passes the gate (the
+    tiny U-Net's levels 1280, 640, 320, 640, 1280: four layers), and its
+    (T, 2F) features are finite."""
+    from zipvoice_torch.models.zipformer import MIN_SEQ_LEN, EncoderStack
+
+    _cuda()
+    model, x1, launches = _stereo_sample(torch.bfloat16, True, num_step=2)
+    gated = 0
+    for stack in model.fm_decoder.encoders:
+        ds = stack.downsample_factor if isinstance(stack, EncoderStack) else 1
+        enc = stack.encoder if isinstance(stack, EncoderStack) else stack
+        gated += len(enc.layers) * ((1280 + ds - 1) // ds >= MIN_SEQ_LEN)
+    assert gated == 4
+    assert launches == gated * 2
+    assert x1.shape == (1, 1280, 2 * model.feat_dim)
+    assert torch.isfinite(x1).all()
+
+
+@pytest.mark.gpu
+def test_stereo_sample_kernel_matches_plain_path():
+    """The same stereo sample in f32 (TF32 off) with #1 and on the plain
+    skew path: features within 5e-3, chip_smoke.py's PATH_ATOL of 5e-2 in
+    mel units times the pipeline's 0.1 feature scale."""
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, got, launches = _stereo_sample(torch.float32, True)
+    _, want, none = _stereo_sample(torch.float32, False)
+    assert launches > 0 and none == 0
+    torch.testing.assert_close(got, want, atol=5e-3, rtol=0)

@@ -87,7 +87,9 @@ def test_load_model_dir_matches_jax(model_dir, jax_side):
     for name, p in bf16.named_parameters():
         if name.endswith(".weight") and p.dim() >= 2 and "embed." != name[:6]:
             assert p.dtype == torch.bfloat16, name
-    with pytest.raises(NotImplementedError, match="A5"):
+    # the dialog models need [S1] and [S2], which the base vocabulary
+    # lacks (bin/make_model_dir.py --model-name zipvoice_dialog adds them)
+    with pytest.raises(KeyError, match=r"\[S1\]"):
         load_model_dir(str(model_dir), "zipvoice_dialog", device="cpu")
 
 

@@ -59,8 +59,9 @@ def test_vocos_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing every zipvoice_torch module, the training step, every
-    kernel wrapper, the front end and the CLI among them, leaves jax, the
-    JAX package, tools/ and egs/ out of sys.modules."""
+    kernel wrapper, the front end, the dialog models and pipelines and the
+    CLIs among them, leaves jax, the JAX package, tools/ and egs/ out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys, zipvoice_torch\n"
         "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
@@ -78,7 +79,10 @@ def test_port_imports_no_jax():
         " 'zipvoice_torch.frontend.en_g2p', 'zipvoice_torch.frontend.zh_g2p',"
         " 'zipvoice_torch.frontend.feature', 'zipvoice_torch.frontend.audio',"
         " 'zipvoice_torch.utils.checkpoint_io',"
-        " 'zipvoice_torch.bin.infer_zipvoice'}\n"
+        " 'zipvoice_torch.bin.infer_zipvoice',"
+        " 'zipvoice_torch.models.dialog',"
+        " 'zipvoice_torch.infer.dialog_pipeline',"
+        " 'zipvoice_torch.bin.infer_zipvoice_dialog'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"
@@ -87,4 +91,4 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 19
+    assert int(r.stdout.split()[-1]) >= 42

@@ -1,12 +1,17 @@
 """Write a reference-layout model dir with RANDOM weights (counterpart of
 ``tools/make_bench_model_dir.py``): ``model.pt``, ``model.json`` and
 ``tokens.txt`` with the Emilia vocabulary, loadable by
-``utils/checkpoint_io.load_model_dir`` and ``bin/infer_zipvoice``, and
-optionally a random Vocos ``pytorch_model.bin`` in the published key
-layout.  Latency does not depend on the weights, and nothing is downloaded.
+``utils/checkpoint_io.load_model_dir`` and ``bin/infer_zipvoice`` (or, for
+the dialog models, ``bin/infer_zipvoice_dialog``), and optionally a random
+Vocos ``pytorch_model.bin`` in the published key layout.  Latency does not
+depend on the weights, and nothing is downloaded.
 
   python -m zipvoice_torch.bin.make_model_dir --out /tmp/zipvoice_random \
-      [--model-name zipvoice_distill] [--vocoder] [--tiny] [--seed 0]
+      [--model-name zipvoice_distill|zipvoice_dialog|zipvoice_dialog_stereo] \
+      [--vocoder] [--tiny] [--seed 0]
+
+The dialog models' vocabulary is the Emilia one with [S1] and [S2]
+appended.
 
 ``--tiny`` writes a narrow model (one layer a stack, dim 48) and, with
 ``--vocoder``, a narrow Vocos, both at the published 100 mel bins: a dir
@@ -23,6 +28,7 @@ import torch
 
 from zipvoice_torch.frontend.en_g2p import ESPEAK_IPA_CODEPOINTS
 from zipvoice_torch.models.zipvoice import build_zipvoice
+from zipvoice_torch.utils.checkpoint_io import DIALOG_MODELS, MODEL_CLASSES
 from zipvoice_torch.vocoder.vocos import build_vocos
 
 # the ZipVoice base model's published config
@@ -94,15 +100,19 @@ def make_model_dir(out: str, model_name: str = "zipvoice",
     is None."""
     os.makedirs(out, exist_ok=True)
     tokens = emilia_tokens()
+    extra = {}
+    if model_name in DIALOG_MODELS:
+        extra = dict(spk_a_id=len(tokens), spk_b_id=len(tokens) + 1)
+        tokens += ["[S1]", "[S2]"]
     with open(os.path.join(out, "tokens.txt"), "w", encoding="utf-8") as f:
         for i, t in enumerate(tokens):
             f.write(f"{t}\t{i}\n")
     with open(os.path.join(out, "model.json"), "w") as f:
         json.dump({"model": config}, f, indent=2)
 
-    model = build_zipvoice(distill=model_name == "zipvoice_distill",
+    model = build_zipvoice(model_class=MODEL_CLASSES[model_name],
                            device="cpu", seed=seed, vocab_size=len(tokens),
-                           pad_id=0, **config)
+                           pad_id=0, **config, **extra)
     torch.save({"model": model.state_dict()}, os.path.join(out, "model.pt"))
     if vocos_config is not None:
         vocos = build_vocos(device="cpu", seed=seed + 1, **vocos_config)
@@ -116,7 +126,7 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--out", required=True)
     ap.add_argument("--model-name", default="zipvoice",
-                    choices=["zipvoice", "zipvoice_distill"])
+                    choices=sorted(MODEL_CLASSES))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--vocoder", action="store_true",
                     help="also write a random Vocos pytorch_model.bin")

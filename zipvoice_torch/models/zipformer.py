@@ -26,7 +26,7 @@ flax's ``Dense(param_dtype=f32, dtype=bf16)`` does.
 """
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -834,9 +834,16 @@ class EncoderStack(nn.Module):
 class TTSZipformer(nn.Module):
     """The full TTS Zipformer: (B, T, in_dim) [+ t (B,), padding_mask
     (B, T), guidance_scale (B,)] -> (B, T, out_dim).  Stack i's layerdrop
-    warm-up spans [i + 1, i + 2] / (stacks + 1) of ``warmup_batches``."""
+    warm-up spans [i + 1, i + 2] / (stacks + 1) of ``warmup_batches``.
 
-    def __init__(self, in_dim: int, out_dim: int,
+    Two-stream mode (ZipVoice-Dialog-Stereo): with 2-tuples for ``in_dim``
+    and ``out_dim``, ``in_proj`` and ``out_proj`` hold one Linear per
+    stream around the shared trunk, and the input's last dimension picks
+    the stream: ``in_dim[0]`` wide takes projections 0, ``in_dim[1]`` wide
+    projections 1 (the reference's ``in_proj.0`` ... ``out_proj.1``)."""
+
+    def __init__(self, in_dim: Union[int, Tuple[int, int]],
+                 out_dim: Union[int, Tuple[int, int]],
                  downsampling_factor: Sequence[int] = (2, 4),
                  num_encoder_layers: Sequence[int] = (4,),
                  cnn_module_kernel: Sequence[int] = (31,),
@@ -859,7 +866,14 @@ class TTSZipformer(nn.Module):
         kernels = per_stack(cnn_module_kernel)
         self.time_embed_dim = time_embed_dim
         self.guidance_scale_embed_dim = guidance_scale_embed_dim
-        self.in_proj = Linear(in_dim, encoder_dim)
+        self.in_dims = (tuple(in_dim) if isinstance(in_dim, (tuple, list))
+                        else None)
+        if self.in_dims is None:
+            self.in_proj = Linear(in_dim, encoder_dim)
+        else:
+            self.in_proj = nn.ModuleList(
+                [Linear(d, encoder_dim) for d in in_dim]
+            )
         if use_time_embed:
             self.time_embed = nn.Sequential(
                 Linear(time_embed_dim, time_embed_dim * 2), SwooshR(),
@@ -889,7 +903,10 @@ class TTSZipformer(nn.Module):
                 else EncoderStack(ds, encoder_dim, **kw)
             )
         self.encoders = nn.ModuleList(stacks)
-        self.out_proj = Linear(encoder_dim, out_dim)
+        self.out_proj = (
+            Linear(encoder_dim, out_dim) if self.in_dims is None
+            else nn.ModuleList([Linear(encoder_dim, d) for d in out_dim])
+        )
 
     def forward(self, x, t: Optional[torch.Tensor] = None,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -899,7 +916,16 @@ class TTSZipformer(nn.Module):
         """``dropout_rate=None`` follows the scheduled 0.3 -> 0.1 ramp."""
         if dropout_rate is None:
             dropout_rate = sched.DROPOUT(batch_count if train else None)
-        x = self.in_proj(x)
+        in_proj, out_proj = self.in_proj, self.out_proj
+        if self.in_dims is not None:
+            if x.shape[-1] not in self.in_dims:
+                raise ValueError(
+                    f"input width {x.shape[-1]} is neither stream's "
+                    f"{self.in_dims}"
+                )
+            index = self.in_dims.index(x.shape[-1])
+            in_proj, out_proj = in_proj[index], out_proj[index]
+        x = in_proj(x)
         time_emb = None
         if t is not None:
             time_emb = timestep_embedding(t, self.time_embed_dim)
@@ -914,4 +940,4 @@ class TTSZipformer(nn.Module):
             x = stack(x, time_emb, padding_mask, train=train,
                       dropout_rate=dropout_rate, batch_count=batch_count,
                       gens=gens)
-        return self.out_proj(x)
+        return out_proj(x)

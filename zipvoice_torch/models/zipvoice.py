@@ -32,6 +32,17 @@ from zipvoice_torch.utils.device import resolve_device
 class ZipVoice(nn.Module):
     """ZipVoice base model; the defaults are the published base config."""
 
+    # the training loss's speech-condition span: its share of each row, and
+    # whether it is anchored at the row's end (the dialog models) or placed
+    # at random
+    mask_percent = (0.7, 1.0)
+    mask_suffix = False
+
+    def _fm_decoder_dims(self, feat_dim: int):
+        """(in_dim, out_dim) of the flow-matching decoder; the stereo model
+        returns the two-stream pairs."""
+        return feat_dim * 3, feat_dim
+
     def __init__(
         self,
         fm_decoder_downsampling_factor: Sequence[int] = (1, 2, 4, 2, 1),
@@ -65,9 +76,10 @@ class ZipVoice(nn.Module):
             query_head_dim=query_head_dim, pos_head_dim=pos_head_dim,
             value_head_dim=value_head_dim, pos_dim=pos_dim,
         )
+        fm_in, fm_out = self._fm_decoder_dims(feat_dim)
         self.fm_decoder = TTSZipformer(
-            in_dim=feat_dim * 3,
-            out_dim=feat_dim,
+            in_dim=fm_in,
+            out_dim=fm_out,
             downsampling_factor=tuple(fm_decoder_downsampling_factor),
             num_encoder_layers=tuple(fm_decoder_num_layers),
             cnn_module_kernel=tuple(fm_decoder_cnn_module_kernel),
@@ -117,6 +129,59 @@ class ZipVoice(nn.Module):
                                  train=train, dropout_rate=dropout_rate,
                                  batch_count=batch_count, gens=gens)
 
+    def flow_terms(
+        self,
+        tokens: torch.Tensor,
+        tokens_lens: torch.Tensor,
+        features: torch.Tensor,
+        features_lens: torch.Tensor,
+        noise: torch.Tensor,
+        t: torch.Tensor,
+        condition_drop_mask: Optional[torch.Tensor] = None,
+        speech_condition_mask: Optional[torch.Tensor] = None,
+        gens: Optional[TrainGenerators] = None,
+        train: bool = True,
+        dropout_rate=0.0,
+        batch_count=None,
+    ):
+        """The training forward up to the loss: (x_t, predicted velocity,
+        loss mask (B, T) bool, flow-matching loss).  The loss is the masked
+        MSE of the velocity, averaged over the masked frames and the
+        features' width.  Arguments as ``forward``'s."""
+        T = features.shape[1]
+        embed = self.forward_text_embed(
+            tokens, tokens_lens, train=train, dropout_rate=dropout_rate,
+            batch_count=batch_count, gens=gens,
+        )
+        text_condition, padding_mask = upsample_text_embed(
+            embed, tokens_lens, features_lens, T
+        )
+        if speech_condition_mask is None:
+            speech_condition_mask = condition_time_mask(
+                *condition_time_mask_draws(gens.device, features.shape[0],
+                                           features.device),
+                features_lens, T, mask_percent=self.mask_percent,
+                suffix=self.mask_suffix,
+            )
+        speech_condition = features.masked_fill(
+            speech_condition_mask[:, :, None], 0.0
+        )
+        if condition_drop_mask is not None:
+            text_condition = text_condition.masked_fill(
+                condition_drop_mask[:, None, None], 0.0
+            )
+        xt = features * t + noise * (1 - t)
+        ut = features - noise
+        vt = self.forward_fm_decoder(
+            t.reshape(-1), xt, text_condition, speech_condition,
+            padding_mask, train=train, dropout_rate=dropout_rate,
+            batch_count=batch_count, gens=gens,
+        )
+        loss_mask = speech_condition_mask & ~padding_mask
+        se = torch.sum(torch.square(vt - ut) * loss_mask[:, :, None])
+        denom = torch.clamp(loss_mask.sum() * vt.shape[-1], min=1)
+        return xt, vt, loss_mask, se / denom
+
     def forward(
         self,
         tokens: torch.Tensor,
@@ -138,41 +203,14 @@ class ZipVoice(nn.Module):
         condition_drop_mask: (B,) bool, True drops the text condition (CFG
         training); speech_condition_mask: (B, T) bool span mask, True where
         the speech condition is hidden (and the loss is taken), drawn from
-        ``gens.device`` when None.  ``gens`` also draws the regularizers'
-        coins and masks when ``train``; ``batch_count`` drives the
-        schedules."""
-        T = features.shape[1]
-        embed = self.forward_text_embed(
-            tokens, tokens_lens, train=train, dropout_rate=dropout_rate,
-            batch_count=batch_count, gens=gens,
-        )
-        text_condition, padding_mask = upsample_text_embed(
-            embed, tokens_lens, features_lens, T
-        )
-        if speech_condition_mask is None:
-            speech_condition_mask = condition_time_mask(
-                *condition_time_mask_draws(gens.device, features.shape[0],
-                                           features.device),
-                features_lens, T,
-            )
-        speech_condition = features.masked_fill(
-            speech_condition_mask[:, :, None], 0.0
-        )
-        if condition_drop_mask is not None:
-            text_condition = text_condition.masked_fill(
-                condition_drop_mask[:, None, None], 0.0
-            )
-        xt = features * t + noise * (1 - t)
-        ut = features - noise
-        vt = self.forward_fm_decoder(
-            t.reshape(-1), xt, text_condition, speech_condition,
-            padding_mask, train=train, dropout_rate=dropout_rate,
-            batch_count=batch_count, gens=gens,
-        )
-        loss_mask = speech_condition_mask & ~padding_mask
-        se = torch.sum(torch.square(vt - ut) * loss_mask[:, :, None])
-        denom = torch.clamp(loss_mask.sum() * self.feat_dim, min=1)
-        return se / denom
+        ``gens.device`` when None (``mask_percent``, ``mask_suffix``).
+        ``gens`` also draws the regularizers' coins and masks when
+        ``train``; ``batch_count`` drives the schedules."""
+        return self.flow_terms(
+            tokens, tokens_lens, features, features_lens, noise, t,
+            condition_drop_mask, speech_condition_mask, gens, train,
+            dropout_rate, batch_count,
+        )[-1]
 
     @torch.no_grad()
     def sample(
@@ -243,8 +281,9 @@ def strip_prompt(x1: torch.Tensor, padding_mask: torch.Tensor,
 def build_zipvoice(distill: bool = False, device="cuda",
                    dtype: torch.dtype = torch.float32, seed: int = 0,
                    train: bool = False, kernel_config: bool = False,
-                   **config) -> ZipVoice:
-    """A ZipVoice (or ZipVoiceDistill) with random weights drawn from
+                   model_class=None, **config) -> ZipVoice:
+    """A ZipVoice (ZipVoiceDistill with ``distill``; ``model_class``, such
+    as a dialog model, when given) with random weights drawn from
     ``seed``, on ``device`` (CUDA unless the caller asks for the CPU), in
     eval mode, with its matmul and conv layers computing in ``dtype``.  For
     inference their weights are cast to ``dtype``; with ``train=True`` every
@@ -254,7 +293,9 @@ def build_zipvoice(distill: bool = False, device="cuda",
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = (ZipVoiceDistill if distill else ZipVoice)(**config)
+        if model_class is None:
+            model_class = ZipVoiceDistill if distill else ZipVoice
+        model = model_class(**config)
     model.to(device).eval()
     for backbone in (model.fm_decoder, model.text_encoder):
         set_compute_dtype(backbone, dtype, cast_weights=not train)

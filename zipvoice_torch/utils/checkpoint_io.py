@@ -18,13 +18,20 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from zipvoice_torch.frontend.tokenizer import EmiliaTokenizer
+from zipvoice_torch.frontend.tokenizer import DialogTokenizer, EmiliaTokenizer
+from zipvoice_torch.models.dialog import ZipVoiceDialog, ZipVoiceDialogStereo
 from zipvoice_torch.models.zipformer import set_compute_dtype
 from zipvoice_torch.models.zipvoice import ZipVoice, ZipVoiceDistill
 from zipvoice_torch.utils.device import resolve_device
 from zipvoice_torch.vocoder.vocos import Vocos, build_vocos
 
-MODEL_CLASSES = {"zipvoice": ZipVoice, "zipvoice_distill": ZipVoiceDistill}
+MODEL_CLASSES = {
+    "zipvoice": ZipVoice,
+    "zipvoice_distill": ZipVoiceDistill,
+    "zipvoice_dialog": ZipVoiceDialog,
+    "zipvoice_dialog_stereo": ZipVoiceDialogStereo,
+}
+DIALOG_MODELS = ("zipvoice_dialog", "zipvoice_dialog_stereo")
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -56,24 +63,28 @@ def load_model_dir(model_dir: str, model_name: str = "zipvoice",
     model.pt|model.safetensors + model.json + tokens.txt.  The model is
     built from model.json, loads the checkpoint with ``strict=True``, then
     computes its matmuls and convs in ``dtype`` and moves to ``device``
-    (CUDA unless the caller asks for the CPU)."""
-    if model_name in ("zipvoice_dialog", "zipvoice_dialog_stereo"):
-        raise NotImplementedError(
-            f"{model_name} is not ported to zipvoice_torch yet (ROADMAP A5: "
-            "dialog and stereo)"
-        )
+    (CUDA unless the caller asks for the CPU).  The dialog models read
+    their tokens with a ``DialogTokenizer``, whose [S1]/[S2] ids they
+    take."""
     cls = MODEL_CLASSES[model_name]
     device = resolve_device(device)
     with open(os.path.join(model_dir, "model.json")) as f:
         model_config = json.load(f)["model"]
-    tokenizer = EmiliaTokenizer(os.path.join(model_dir, "tokens.txt"))
+    token_file = os.path.join(model_dir, "tokens.txt")
+    extra = {}
+    if model_name in DIALOG_MODELS:
+        tokenizer = DialogTokenizer(token_file)
+        extra = dict(spk_a_id=tokenizer.spk_a_id,
+                     spk_b_id=tokenizer.spk_b_id)
+    else:
+        tokenizer = EmiliaTokenizer(token_file)
 
     ckpt_path = os.path.join(model_dir, "model.pt")
     if not os.path.exists(ckpt_path):
         ckpt_path = os.path.join(model_dir, "model.safetensors")
     model = _load_into(
         lambda: cls(**model_config, vocab_size=tokenizer.vocab_size,
-                    pad_id=tokenizer.pad_id),
+                    pad_id=tokenizer.pad_id, **extra),
         load_torch_state_dict(ckpt_path),
     )
     for backbone in (model.fm_decoder, model.text_encoder):

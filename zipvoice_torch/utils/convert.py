@@ -47,6 +47,8 @@ def zipformer_state_dict(tree: Mapping[str, Any], prefix: str = "",
         k = k.replace("time_embed_in.", "time_embed.0.")
         k = k.replace("time_embed_out.", "time_embed.2.")
         k = re.sub(r"\blayers_(\d+)\.", r"layers.\1.", k)
+        # the two-stream decoder's projection pairs (ZipVoice-Dialog-Stereo)
+        k = re.sub(r"\b(in_proj|out_proj)_([01])\.", r"\1.\2.", k)
         if k.endswith(".downsample_bias"):
             k = k[: -len("_bias")] + ".bias"
         m = re.match(r"encoders_(\d+)\.(.*)", k)
@@ -74,11 +76,13 @@ def state_dict_from_jax_params(
     downsampling_factors: Mapping[str, Sequence[int]],
 ) -> Dict[str, torch.Tensor]:
     """Flax ZipVoice params (the contents of ``variables["params"]``) ->
-    the port's ``state_dict``.  ``downsampling_factors`` maps
-    "fm_decoder" and "text_encoder" to their stacks' factors, e.g.
+    the port's ``state_dict``; the dialog models' ``spk_embed`` and the
+    stereo model's projection pairs included.  ``downsampling_factors``
+    maps "fm_decoder" and "text_encoder" to their stacks' factors, e.g.
     {"fm_decoder": (1, 2, 4, 2, 1), "text_encoder": (1,)}."""
     out = _tensors({
-        "embed.weight": np.asarray(params["embed"]["embedding"], np.float32)
+        f"{name}.weight": np.asarray(params[name]["embedding"], np.float32)
+        for name in ("embed", "spk_embed") if name in params
     })
     for name in ("fm_decoder", "text_encoder"):
         out.update(zipformer_state_dict(
