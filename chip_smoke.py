@@ -91,7 +91,27 @@ are built for sm_90a).  Phases, each of which must pass:
    PATH_ATOL; then ``bin/infer_zipvoice_dialog`` in process for the mono
    model and as a subprocess on a six-field test list for the stereo one:
    exit 0, 24 kHz wavs of one and two channels, rtf logged.  Prints the
-   load times, the front end's host time, ``t``, ``t_vocoder`` and the rtf.
+   load times, the front end's host time, ``t``, ``t_vocoder`` and the rtf;
+13. the server: write a ZipVoice-Distill model dir at the published
+   widths with a random Vocos, load both in bf16 behind ``TTSEngine``
+   (max_batch 8, 4 steps, guidance 3.0) and ``make_handler`` on a thread,
+   warm the buckets the traffic hits, register four speakers (prefixes of
+   one 3 s prompt, as the client makes them), check every route (health,
+   models, /tts cached and inline with its phases >= 0, /v1/audio/speech
+   as wav and pcm: 24 kHz mono wavs, finite, within [-1, 1]; 404 for an
+   unknown voice), then run ``serving/client.py`` as a subprocess (four
+   speakers, 16 requests at concurrency 1 and 8, texts of 143-181 tokens in
+   the 1024- and 1280-frame buckets): a micro-batch of several speakers'
+   rows, #1's launches as the gates predict for the recorded buckets and
+   above 0; prints audio-s/s and latency P50/P90 and whether the sampler
+   and the finisher overlapped.  Then one request through the engine
+   against ``_sample_batch`` on a fresh pipeline with the same seed (within
+   PATH_ATOL), the int8 pipeline's resident weight bytes (below 0.6x
+   bf16's), its allocator peak across one request against bf16's (printed
+   as a ratio; at most bf16's plus the int8 bytes, since the expanded copy
+   lives for one call) and its features against bf16's on the same noise
+   (mean relative |d| < 0.15, #1 launched), and the server's entry point
+   as a subprocess answering /health and one /tts.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -1520,6 +1540,445 @@ def phase_dialog(card, seed):
     return launches
 
 
+# phase 13: the server at ZipVoice-Distill's defaults (4 steps, guidance
+# 3.0).  Four speakers, prefixes of one 3 s prompt as the client makes them
+# (3.0, 2.64, 2.28, 1.92 s; 254, 237, 205 and 172 frames once trimmed, 45
+# prompt tokens each), and four texts of 151, 159, 143 and 181 tokens, the
+# client sending text i to speaker i: speakers 0 and 1 land in the
+# 1280-frame bucket (about 1107 and 1075 frames), 2 and 3 in the 1024 one
+# (about 857 and 864), at S=256 (192 for text 2 alone).  Shorter texts
+# after the shorter prompts would fall to 768, where #1 runs at one level.
+SERVE_NUM_STEP = 4
+SERVE_GUIDANCE = 3.0
+SERVE_TEXTS = [
+    "Across the valley, the old mill still turns when the spring rains "
+    "come, and the miller keeps warm bread on the stone sill for all the "
+    "tired travelers.",
+    "Travelers who stop by the mill are offered warm bread and a seat by "
+    "the fire, while the river runs loud and fast below the great turning "
+    "wheel of oak.",
+    "The children of the village gather by the water every evening to "
+    "watch the swallows, count the passing boats and race their little "
+    "paper ships.",
+    "When winter comes at last, the great wheel stands still and quiet, and "
+    "the whole valley waits under deep snow for the first warm wind of the "
+    "new year to blow down the hills.",
+]
+SERVE_WARM = [(b, s, t) for b in (1, 2, 4, 8)
+              for s, t in ((256, 1280), (256, 1024), (192, 1024))]
+# int8 against bf16 on the same noise: mean relative |d| of the features
+# (tests/test_quantize.py's bound), and the weight bytes held on the card.
+# The allocator's peak across one request is held to bf16's plus the int8
+# bytes: the expanded copy lives for one call at a time, so int8's peak
+# may exceed bf16's by no more than its own weights.
+INT8_REL_TOL = 0.15
+INT8_BYTES_RATIO = 0.6
+
+
+def check_served_wav(what, data):
+    """A 16-bit wav of one 24 kHz channel, non-empty, finite and within
+    [-1, 1]: (seconds of audio)."""
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data), "rb") as f:
+        head = (f.getframerate(), f.getnchannels(), f.getsampwidth())
+        pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+    return check_served_pcm(what, pcm, head)
+
+
+def check_served_pcm(what, pcm, head=(24000, 1, 2)):
+    wav = pcm.astype(np.float32) / 32768.0
+    if head != (24000, 1, 2) or wav.size == 0:
+        raise AssertionError(f"{what}: (rate, channels, width) {head}, "
+                             f"{wav.size} samples")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+        raise AssertionError(f"{what}: wav not finite or outside [-1, 1]")
+    return wav.size / 24000
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url, path, obj=None):
+    """(status, content type, body) of a GET, or of a POST of ``obj`` as
+    JSON; an error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, data=None if obj is None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def phase_serving(card, seed):
+    """The server at full width: a ZipVoice-Distill model dir (published
+    widths, random weights from ``seed``) and a random Vocos, loaded in
+    bf16, behind ``TTSEngine`` (max_batch 8, 4 steps, guidance 3.0) and
+    ``make_handler`` on a thread; every route; the port's client as a
+    subprocess at concurrency 1 and 8 over four speakers, its micro-batches
+    and #1's launches recorded; the engine against ``_sample_batch``; the
+    int8 pipeline's weight bytes and features against bf16's; then the
+    server's entry point as a subprocess.  Returns #1's launches in the
+    served traffic."""
+    import base64
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.serving import client, server
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    start = time.perf_counter()
+    name = "zipvoice_distill"
+    kw = dict(num_step=SERVE_NUM_STEP, guidance_scale=SERVE_GUIDANCE)
+    tmp = tempfile.mkdtemp(prefix="zipvoice_serve_")
+    proc = None
+    try:
+        make_model_dir(tmp, name, config=BASE_CONFIG, seed=seed,
+                       vocos_config={})
+        vocos_path = os.path.join(tmp, "pytorch_model.bin")
+        prompt = os.path.join(tmp, "prompt.wav")
+        save_wav(prompt, speech_like_wav(seed, seconds=3.0), 24000)
+        texts = os.path.join(tmp, "texts.txt")
+        with open(texts, "w", encoding="utf-8") as f:
+            f.write("\n".join(SERVE_TEXTS) + "\n")
+
+        def load(quantize=None):
+            model, tok = load_model_dir(tmp, name, dtype=torch.bfloat16)
+            vocos = load_vocos(vocos_path, dtype=torch.bfloat16)
+            return InferencePipeline(model, vocos, seed=seed, tokenizer=tok,
+                                     quantize=quantize)
+
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pipe = load()
+        torch.cuda.synchronize()
+        held16 = torch.cuda.memory_allocated() - before
+        model = pipe.model
+        for B, S, T in SERVE_WARM:
+            pipe.warm_bucket(B, S, T, **kw)
+        torch.cuda.synchronize()
+        print(f"serving: {name} and Vocos in bf16, {len(SERVE_WARM)} "
+              f"buckets warmed, {time.perf_counter() - start:.1f} s into the "
+              f"phase [{card}]", flush=True)
+
+        engine = server.TTSEngine(pipe, max_batch=8, **kw)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    server.make_handler(engine, name))
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        # test hooks: each sample call's rows and prompt lengths, each
+        # bucket the model ran, and each batch handed to the finisher
+        calls, batches = [], []
+        sample_device = pipe._sample_batch_device
+
+        def spy(batch_tokens, prompt_tokens, prompt_features, **k):
+            calls.append([f.shape[0] for f in prompt_features])
+            return sample_device(batch_tokens, prompt_tokens,
+                                 prompt_features, **k)
+
+        pipe._sample_batch_device = spy
+        hand_off = engine._inflight.put
+
+        def keep_batch(got, *a, **k):
+            if got is not None:
+                batches.append([item[-1] for item in got[0]])
+            return hand_off(got, *a, **k)
+
+        engine._inflight.put = keep_batch
+        dispatched = record_dispatches(model)
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            code, _, body = http(url, "/health")
+            if (code, json.loads(body)) != (200, {"status": "ok"}):
+                raise AssertionError(f"/health: {code} {body!r}")
+            code, _, body = http(url, "/v1/models")
+            if code != 200 or json.loads(body)["data"][0]["id"] != name:
+                raise AssertionError(f"/v1/models: {code} {body!r}")
+            for i, data in enumerate(client.prompt_prefixes(prompt, 4)):
+                code, _, body = http(url, "/speaker", {
+                    "name": f"spk{i}", "prompt_text": CLI_PROMPT_TEXT,
+                    "prompt_wav_b64": base64.b64encode(data).decode()})
+                if code != 200:
+                    raise AssertionError(f"/speaker: {code} {body!r}")
+            with open(prompt, "rb") as f:
+                prompt_b64 = base64.b64encode(f.read()).decode()
+            for what, req in (
+                    ("cached speaker", {"speaker": "spk0",
+                                        "text": SERVE_TEXTS[0]}),
+                    ("inline prompt", {"prompt_text": CLI_PROMPT_TEXT,
+                                       "prompt_wav_b64": prompt_b64,
+                                       "text": SERVE_TEXTS[2]})):
+                code, _, body = http(url, "/tts", req)
+                out = json.loads(body)
+                if code != 200 or min(out["timing"].values()) < 0:
+                    raise AssertionError(f"/tts {what}: {code} {out}")
+                seconds = check_served_wav(
+                    f"/tts {what}", base64.b64decode(out["wav_b64"]))
+                print(f"/tts ({what}): {seconds:.3f} s of audio, latency "
+                      f"{out['latency_s']:.4f} s, phases (ms) "
+                      + ", ".join(f"{k} {v:.1f}"
+                                  for k, v in out["timing"].items())
+                      + f" [{card}]", flush=True)
+            for fmt in ("wav", "pcm"):
+                code, ctype, body = http(url, "/v1/audio/speech", {
+                    "model": name, "input": SERVE_TEXTS[1], "voice": "spk1",
+                    "response_format": fmt})
+                if (code, ctype) != (200, f"audio/{fmt}"):
+                    raise AssertionError(f"/v1/audio/speech {fmt}: {code} "
+                                         f"{ctype} {body[:200]!r}")
+                if fmt == "wav":
+                    check_served_wav("/v1/audio/speech wav", body)
+                else:
+                    check_served_pcm("/v1/audio/speech pcm",
+                                     np.frombuffer(body, "<i2"))
+            code, _, body = http(url, "/v1/audio/speech",
+                                 {"input": "x", "voice": "nobody"})
+            if code != 404 or "unknown voice" not in body.decode():
+                raise AssertionError(f"unknown voice: {code} {body!r}")
+            print(f"serving routes: /health, /v1/models, /speaker x4, /tts "
+                  f"cached and inline, /v1/audio/speech wav and pcm, 404 "
+                  f"for an unknown voice [{card}]", flush=True)
+
+            n_routes, n_batches = len(calls), len(batches)
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "zipvoice_torch.serving.client",
+                 "--url", url, "--prompt-wav", prompt, "--prompt-text",
+                 CLI_PROMPT_TEXT, "--text-file", texts, "--num-speakers",
+                 "4", "--concurrency", "1,8", "--num-requests", "16"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                capture_output=True, text=True, timeout=600)
+            client_s = time.perf_counter() - t
+        finally:
+            del model.sample, pipe._sample_batch_device, engine._inflight.put
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        if r.returncode != 0:
+            raise AssertionError(f"client failed:\n{r.stderr[-4000:]}")
+        sweep = [line.split("INFO:root:", 1)[-1]
+                 for line in r.stderr.splitlines()
+                 if "concurrency" in line or "server phases" in line]
+        print(f"client subprocess (4 speakers, 16 requests at c=1 and at "
+              f"c=8, {SERVE_NUM_STEP} steps, bf16) in {client_s:.1f} s:",
+              flush=True)
+        for line in sweep:
+            print(f"  {line} [{card}]", flush=True)
+        if sum(line.startswith("concurrency") for line in sweep) != 2:
+            raise AssertionError(f"client printed no sweep:\n"
+                                 f"{r.stderr[-4000:]}")
+
+        want = dict.fromkeys(launched, 0)
+        for _, S, T in dispatched:
+            for k, n in expected_launches(model, S, T,
+                                          SERVE_NUM_STEP).items():
+                want[k] += n
+        traffic = calls[n_routes:]
+        mixed = [c for c in traffic if len(c) > 1 and len(set(c)) > 1]
+        buckets = sorted(set(dispatched))
+        print(f"served micro-batches: {len(calls)} sample calls "
+              f"({len(traffic)} from the client), rows per call "
+              f"{[len(c) for c in traffic]}, {len(mixed)} of them with rows "
+              f"of 2+ speakers (prompt frames {mixed[:3]}...); buckets "
+              f"(B, S, T) {buckets}; launches "
+              f"{ {k: v for k, v in launched.items() if v} } (expected "
+              f"{ {k: v for k, v in want.items() if v} }) [{card}]",
+              flush=True)
+        if not mixed:
+            raise AssertionError(f"no micro-batch of several speakers: "
+                                 f"{traffic}")
+        if launched != want or launched["rel_pos_attention_weights"] <= 0:
+            raise AssertionError(f"serving launches {launched}, want {want}")
+        if not {T for _, _, T in dispatched} >= {1024, 1280}:
+            raise AssertionError(f"buckets {buckets}: not 1024 and 1280")
+        launches = launched["rel_pos_attention_weights"]
+
+        # the stages' overlap in the client's traffic, from the engine's own
+        # stamps: of the consecutive batches N, N+1 where a request of N+1
+        # was waiting before N was vocoded (none at c=1), those whose
+        # sample started before N was vocoded
+        client_batches = batches[n_batches:]
+        pairs = [(n[0]["vocoded"], m[0]["dispatch"], m[0]["dispatched"])
+                 for n, m in zip(client_batches, client_batches[1:])
+                 if min(tm["submit"] for tm in m) < n[0]["vocoded"]]
+        over = [p for p in pairs if p[1] < p[0]]
+        if pairs:
+            print(f"stage overlap: {len(over)} of the {len(pairs)} "
+                  f"consecutive batches N, N+1 with N+1 waiting before N was "
+                  f"vocoded started N+1's sample first; vocoded(N) - "
+                  f"dispatch(N+1) median "
+                  f"{np.median([v - d for v, d, _ in pairs]) * 1e3:.1f} ms, "
+                  f"vocoded(N) - dispatched(N+1) median "
+                  f"{np.median([v - d for v, _, d in pairs]) * 1e3:.1f} ms "
+                  f"[{card}]", flush=True)
+        else:
+            print(f"stage overlap: no batch waited on another [{card}]",
+                  flush=True)
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+
+        # the engine against _sample_batch on a fresh pipeline, same seed
+        entry = engine.cache.get("spk0")
+        tokens = pipe.tokenizer.texts_to_token_ids([SERVE_TEXTS[0]])[0]
+        pipe.rng = np.random.RandomState(seed)
+        read = []
+        vocode = pipe._vocode_chunks
+
+        def keep_feats(chunks):
+            read.extend(chunks)
+            return vocode(chunks)
+
+        pipe._vocode_chunks = keep_feats
+        engine = server.TTSEngine(pipe, max_batch=8, **kw)
+        status, _, _ = engine.submit(entry, SERVE_TEXTS[0]).get(timeout=300)
+        engine.close()
+        del pipe._vocode_chunks
+        fresh = InferencePipeline(model, pipe.vocoder, seed=seed,
+                                  tokenizer=pipe.tokenizer)
+        feats, lens = fresh._sample_batch(
+            [tokens], [entry["tokens"]], [entry["features"]], speed=[1.0],
+            t_shift=0.5, **kw)
+        want_feats = feats[0, : lens[0]]
+        if status != "ok" or read[0].shape != want_feats.shape:
+            raise AssertionError(f"engine request {status}, features "
+                                 f"{read[0].shape if read else None} vs "
+                                 f"{want_feats.shape}")
+        d = float(np.abs(read[0] - want_feats).max())
+        print(f"engine vs _sample_batch on a fresh pipeline, same seed: "
+              f"features {want_feats.shape}, mel max|d| {d:.3e} (tol "
+              f"{PATH_ATOL:.0e}) [{card}]", flush=True)
+        if not d <= PATH_ATOL:
+            raise AssertionError(f"engine and pipeline disagree: {d}")
+
+        # int8: the weights held on the card, and the allocator's peak
+        # across one request (sample and vocode), each against bf16's
+        bf16_bytes = pipe.weight_bytes()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        pipe8 = load("int8")
+        torch.cuda.synchronize()
+        held8 = torch.cuda.memory_allocated() - before
+        int8_bytes = pipe8.weight_bytes()
+        args = ([tokens], [entry["tokens"]], [entry["features"]])
+        sample_kw = dict(speed=[1.0], t_shift=0.5, **kw)
+
+        def request(p):
+            """(features, lengths, allocator bytes above the base at the
+            request's peak) of one request on ``p`` from ``seed``'s noise,
+            #1 counted."""
+            p.rng = np.random.RandomState(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            feats, lens = p._sample_batch(*args, **sample_kw)
+            p._vocode_chunks([feats[0, : lens[0]]])
+            torch.cuda.synchronize()
+            return feats, lens, torch.cuda.max_memory_allocated() - base
+
+        want8, _, peak16 = request(pipe)
+        reset_launches()
+        got8, lens8, peak8 = request(pipe8)
+        n8 = launch_counts()["rel_pos_attention_weights"]
+        n = lens8[0]
+        rel = float(np.abs(got8[0, :n] - want8[0, :n]).mean()
+                    / np.abs(want8[0, :n]).mean())
+        foot16, foot8 = held16 + peak16, held8 + peak8
+        mib = 2 ** 20
+        print(f"int8: weights on the card {int8_bytes / mib:.1f} MiB vs "
+              f"bf16 {bf16_bytes / mib:.1f} MiB "
+              f"({int8_bytes / bf16_bytes:.3f}x, limit {INT8_BYTES_RATIO}); "
+              f"allocator peak across one request (weights held plus the "
+              f"request's peak above them) int8 {foot8 / mib:.1f} MiB "
+              f"({held8 / mib:.1f} + {peak8 / mib:.1f}) vs bf16 "
+              f"{foot16 / mib:.1f} MiB ({held16 / mib:.1f} + "
+              f"{peak16 / mib:.1f}): {foot8 / foot16:.3f}x, the per-call "
+              f"expanded copy included (limit: bf16's plus int8's own "
+              f"{held8 / mib:.1f} MiB); features vs bf16 on the same "
+              f"noise: mean relative |d| {rel:.4f} (tol {INT8_REL_TOL}); "
+              f"#1 launches {n8} [{card}]", flush=True)
+        if not int8_bytes < INT8_BYTES_RATIO * bf16_bytes:
+            raise AssertionError(f"int8 weights {int8_bytes} vs bf16 "
+                                 f"{bf16_bytes}")
+        if not foot8 <= foot16 + held8:
+            raise AssertionError(f"int8 peak {foot8} above bf16's {foot16} "
+                                 f"by more than one int8 copy {held8}")
+        if not rel < INT8_REL_TOL or n8 <= 0:
+            raise AssertionError(f"int8: relative |d| {rel}, #1 {n8}")
+        del pipe, pipe8, fresh, model
+        torch.cuda.empty_cache()
+
+        # the entry point as a subprocess
+        port = free_port()
+        t = time.perf_counter()
+        with open(os.path.join(tmp, "server.log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "zipvoice_torch.serving.server",
+                 "--model-dir", tmp, "--vocoder-path", vocos_path,
+                 "--port", str(port), "--warmup-buckets", "1:256:1280"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=log, stderr=subprocess.STDOUT)
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.perf_counter() + 300
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"server exited {proc.returncode}:\n"
+                    + open(os.path.join(tmp, "server.log")).read()[-4000:])
+            try:
+                if http(url, "/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError("server did not come up in 300 s")
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t
+        code, _, body = http(url, "/tts", {
+            "prompt_text": CLI_PROMPT_TEXT, "prompt_wav_b64": prompt_b64,
+            "text": SERVE_TEXTS[0]})
+        if code != 200:
+            raise AssertionError(f"server CLI /tts: {code} {body[:400]!r}")
+        out = json.loads(body)
+        seconds = check_served_wav("server CLI /tts",
+                                   base64.b64decode(out["wav_b64"]))
+        print(f"server CLI subprocess: /health answered {up_s:.1f} s after "
+              f"the start; /tts {seconds:.3f} s of audio in "
+              f"{out['latency_s']:.4f} s [{card}]", flush=True)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp)
+    print(f"serving phase: {time.perf_counter() - start:.1f} s wall "
+          f"[{card}]", flush=True)
+    return launches
+
+
 def print_tensor_core_use(names):
     """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
     warp's matrix transpose) in its SASS, from ``cuobjdump``."""
@@ -1609,6 +2068,7 @@ def main(argv=None) -> int:
     del f32_model, f32_pair_run
     cli_launches = phase_cli(card, args.seed)
     dialog_launches = phase_dialog(card, args.seed)
+    serving_launches = phase_serving(card, args.seed)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -1669,7 +2129,9 @@ def main(argv=None) -> int:
     kernels[0]["launches_dialog_path"] = dialog_launches["zipvoice_dialog"]
     kernels[0]["launches_dialog_stereo_path"] = dialog_launches[
         "zipvoice_dialog_stereo"]
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - start:.1f} s",
+    # and in phase 13's served traffic (the routes and the client's sweep)
+    kernels[0]["launches_serving_path"] = serving_launches
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

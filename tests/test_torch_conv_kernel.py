@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import jax_jit
+from torch_parity import assert_params_like_init, jax_jit
 from zipvoice_torch.kernels.depthwise_conv import (
     depthwise_conv1d,
     depthwise_conv1d_ref,
@@ -82,6 +82,7 @@ def test_conv_module_kernel_path_matches_jax():
     from zipvoice_tpu.models.zipformer import (
         ConvolutionModule as JaxConvModule,
     )
+    from zipvoice_tpu.utils.convert import convert_tts_zipformer
 
     C, k, T = 32, 9, 40
     rng = np.random.RandomState(3)
@@ -90,14 +91,17 @@ def test_conv_module_kernel_path_matches_jax():
     mask[1, -11:] = True
     jmod = JaxConvModule(channels=C, kernel_size=k, use_pallas=True,
                          pallas_interpret=True)
-    params = jax_jit(jmod.init)(jax.random.PRNGKey(0), jnp.asarray(x),
-                                jnp.asarray(mask))
-    params = jax.tree.map(
-        lambda a: np.asarray(a) + np.float32(0.05)
-        * np.asarray(rng.randn(*a.shape), np.float32), params)
+    # flax params from the port's init, perturbed, through the JAX
+    # package's converter: a flax init would trace the Pallas path again
+    tmod = set_conv_kernel(ConvolutionModule(C, k), True)
+    params = {"params": convert_tts_zipformer({
+        name: v.numpy() + np.float32(0.05)
+        * np.asarray(rng.randn(*v.shape), np.float32)
+        for name, v in tmod.state_dict().items()})}
     want = np.asarray(jax_jit(jmod.apply)(params, jnp.asarray(x),
                                           jnp.asarray(mask)))
-    tmod = set_conv_kernel(ConvolutionModule(C, k), True)
+    assert_params_like_init(params, jmod.init, jnp.asarray(x),
+                            jnp.asarray(mask))
     tmod.load_state_dict(zipformer_state_dict(params["params"]), strict=True)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x), torch.from_numpy(mask))

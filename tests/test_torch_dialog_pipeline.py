@@ -19,7 +19,7 @@ import conftest  # noqa: F401
 import torch
 
 from test_torch_infer_cli import WAV_ATOL, _read_wav, _recording
-from torch_parity import DS, jax_jit
+from torch_parity import DS, fast_pipeline
 from zipvoice_torch.bin.make_model_dir import (
     TINY_CONFIG,
     TINY_VOCOS,
@@ -73,24 +73,6 @@ def dirs(tmp_path_factory):
     return out
 
 
-def _fast(jpipe):
-    """Compile the JAX pipeline's sample and vocoder programs with XLA's
-    backend optimizations off (``torch_parity.jax_jit``), as every parity
-    test here does: they cost more compile time than these tiny programs
-    run for."""
-    sample_fn, vocode_fn, cache = jpipe._sample_fn, jpipe._vocode_fn, {}
-
-    def fast_sample(*key):
-        if key not in cache:
-            cache[key] = jax_jit(sample_fn(*key))
-        return cache[key]
-
-    vocode = jax_jit(vocode_fn())
-    jpipe._sample_fn = fast_sample
-    jpipe._vocode_fn = lambda: vocode
-    return jpipe
-
-
 @pytest.fixture(scope="module")
 def pipes(dirs):
     """For each model name: (JAX pipeline, port pipeline) on the same dir
@@ -115,8 +97,8 @@ def pipes(dirs):
         d = str(dirs / name)
         jmodel, params, jtok = jax_load_model_dir(d, name)
         _, vparams = jax_load_vocos(os.path.join(d, "pytorch_model.bin"))
-        jpipe = _fast(jcls(jmodel, params, JaxVocos(**TINY_VOCOS), vparams,
-                           jtok, seed=5))
+        jpipe = fast_pipeline(jcls(jmodel, params, JaxVocos(**TINY_VOCOS),
+                                   vparams, jtok, seed=5))
         model, tok = load_model_dir(d, name, device="cpu")
         vocos = load_vocos(os.path.join(d, "pytorch_model.bin"),
                            device="cpu")

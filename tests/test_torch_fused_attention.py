@@ -14,12 +14,15 @@ import numpy as np
 
 import conftest  # noqa: F401
 
-import jax
 import jax.numpy as jnp
 import torch
 
 import zipvoice_torch.models.zipformer as zipformer
-from torch_parity import assert_sample_matches, jax_jit
+from torch_parity import (
+    assert_params_like_init,
+    assert_sample_matches,
+    jax_jit,
+)
 from zipvoice_torch.kernels.rel_pos_attention import (
     attention_apply_ref,
     rel_pos_attention_weights_nonlin_ref,
@@ -88,6 +91,7 @@ def test_layer_kernel_config_matches_jax(monkeypatch):
         compact_rel_pos_encoding as jax_pos,
     )
     from zipvoice_tpu.ops import pallas_attention as pa
+    from zipvoice_tpu.utils.convert import convert_tts_zipformer
 
     T, D = 48, 48
     # the switches are read when the JAX program is traced, so they are set
@@ -110,13 +114,16 @@ def test_layer_kernel_config_matches_jax(monkeypatch):
     pos = np.asarray(jax_pos(T, 48))
     jlayer = JaxLayer(**kw, use_pallas_attention=True)
     args = tuple(map(jnp.asarray, (x, pos, time_emb, mask)))
-    params = jax_jit(jlayer.init)(jax.random.PRNGKey(0), *args)
-    params = jax.tree.map(
-        lambda a: np.asarray(a) + np.float32(0.05)
-        * np.asarray(rng.randn(*a.shape), np.float32), params)
-    want = np.asarray(jax_jit(jlayer.apply)(params, *args))
-
+    # flax params from the port's init, perturbed, through the JAX
+    # package's converter: a flax init would trace the layer once more
     tlayer = ZipformerEncoderLayer(**kw)
+    params = {"params": convert_tts_zipformer({
+        k: v.numpy() + np.float32(0.05)
+        * np.asarray(rng.randn(*v.shape), np.float32)
+        for k, v in tlayer.state_dict().items()})}
+    want = np.asarray(jax_jit(jlayer.apply)(params, *args))
+    assert_params_like_init(params, jlayer.init, *args)
+
     tlayer.load_state_dict(zipformer_state_dict(params["params"]),
                            strict=True)
     set_kernel_config(tlayer, True)

@@ -712,3 +712,100 @@ def test_stereo_sample_kernel_matches_plain_path():
     _, want, none = _stereo_sample(torch.float32, False)
     assert launches > 0 and none == 0
     torch.testing.assert_close(got, want, atol=5e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_engine_batches_back_to_back_match_sample_batch(tmp_path):
+    """Two batches of different buckets (256 and 1280 frames, the second
+    through #1) go through ``TTSEngine`` back to back, the second queued on
+    the card while the first's features are copied to the host: each
+    batch's features, as the finisher reads them, equal ``_sample_batch``
+    on that batch alone with the same noise, bit for bit.  A copy that
+    raced the next batch, or memory the allocator handed out again too
+    early, would differ."""
+    from zipvoice_torch.bin.make_model_dir import (
+        TINY_CONFIG,
+        TINY_VOCOS,
+        make_model_dir,
+    )
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.serving.server import TTSEngine
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    _cuda()
+    make_model_dir(str(tmp_path), "zipvoice_distill", config=TINY_CONFIG,
+                   vocos_config=TINY_VOCOS)
+    model, tok = load_model_dir(str(tmp_path), "zipvoice_distill",
+                                dtype=torch.bfloat16)
+    vocos = load_vocos(str(tmp_path / "pytorch_model.bin"),
+                       dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    F = model.feat_dim
+    # 5 and 15 frames a prompt token: 20 text tokens land at 256 frames,
+    # 60 at 1280
+    entries = [{"tokens": list(rng.randint(3, 300, 20)),
+                "features": (0.5 * rng.randn(n, F)).astype(np.float32),
+                "prompt_rms": 0.1} for n in (100, 300)]
+    texts = [" ".join(["hello"] * 3), " ".join(["hello"] * 9)]
+    tokens = [tok.texts_to_token_ids([t])[0] for t in texts]
+    assert [len(t) for t in tokens] == [20, 62]
+
+    pipe = InferencePipeline(model, vocos, seed=3, tokenizer=tok)
+    read = []
+    vocode = pipe._vocode_chunks
+
+    def keep(chunks):
+        read.append([c.copy() for c in chunks])
+        return vocode(chunks)
+
+    pipe._vocode_chunks = keep
+    engine = TTSEngine(pipe, max_batch=2, batch_window_ms=2000.0,
+                       num_step=2, guidance_scale=3.0)
+    before = rel_pos_attention_weights.launches
+    try:
+        done = [engine.submit(e, t) for e, t in zip(entries, texts)]
+        replies = [d.get(timeout=300) for d in done]
+    finally:
+        engine.close()
+    assert [r[0] for r in replies] == ["ok", "ok"]
+    assert rel_pos_attention_weights.launches > before
+    assert len(read) == 2
+    fresh = InferencePipeline(model, vocos, seed=3, tokenizer=tok)
+    for got, entry, toks in zip(read, entries, tokens):
+        feats, lens = fresh._sample_batch(
+            [toks], [entry["tokens"]], [entry["features"]], num_step=2,
+            guidance_scale=3.0, speed=[1.0], t_shift=0.5)
+        np.testing.assert_array_equal(got[0], feats[0, : lens[0]])
+    assert {T for _, _, T in fresh._seen_buckets} == {256, 1280}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_dequantization_on_the_card_matches_the_cpu(dtype):
+    """``quantize_state_dict`` of the card's weights and
+    ``dequantize_state_dict`` on the card give the CPU's bits."""
+    from zipvoice_torch.bin.make_model_dir import TINY_CONFIG
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+    from zipvoice_torch.serving.quantize import (
+        dequantize_state_dict,
+        quantize_state_dict,
+    )
+
+    _cuda()
+    config = dict(TINY_CONFIG, fm_decoder_dim=144,
+                  fm_decoder_cnn_module_kernel=[31, 15, 7, 15, 31])
+    sd = build_zipvoice(device="cpu", vocab_size=40, **config).state_dict()
+    cpu = quantize_state_dict(sd)
+    card = quantize_state_dict({k: v.cuda() for k, v in sd.items()})
+    quantized = [k for k, v in cpu.items() if isinstance(v, dict)]
+    assert any(k.endswith("depthwise_conv.weight") for k in quantized)
+    for k in quantized:
+        for part in ("q", "scale"):
+            assert torch.equal(card[k][part], cpu[k][part]), k
+    want = dequantize_state_dict(cpu, dtype)
+    got = dequantize_state_dict(
+        {k: {n: t.cuda() for n, t in v.items()} if k in quantized
+         else v.cuda() for k, v in cpu.items()}, dtype)
+    for k in quantized:
+        assert got[k].device.type == "cuda" and got[k].dtype == dtype
+        assert torch.equal(got[k].cpu(), want[k]), k

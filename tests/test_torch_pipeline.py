@@ -7,7 +7,7 @@ import conftest  # noqa: F401
 
 import torch
 
-from torch_parity import TINY, TINY_VOCOS, model_pair
+from torch_parity import TINY, TINY_VOCOS, fast_pipeline, model_pair
 from zipvoice_torch.infer.pipeline import InferencePipeline
 from zipvoice_torch.vocoder.vocos import Vocos
 
@@ -20,7 +20,8 @@ def test_sample_batch_matches_jax_pipeline():
 
     jmodel, params, tmodel = model_pair(seed=2)
     tvocos = Vocos(**TINY_VOCOS).eval()
-    jpipe = JaxPipeline(jmodel, params, None, None, None, seed=5)
+    jpipe = fast_pipeline(JaxPipeline(jmodel, params, None, None, None,
+                                      seed=5))
     tpipe = InferencePipeline(tmodel, tvocos, seed=5, device="cpu")
 
     rng = np.random.RandomState(0)

@@ -9,14 +9,13 @@ import numpy as np
 
 import conftest  # noqa: F401
 
-import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import TINY_VOCOS, jax_jit
+from torch_parity import TINY_VOCOS, assert_params_like_init, jax_jit
 from zipvoice_torch.ops.stft import istft
 from zipvoice_torch.utils.convert import vocos_state_dict_from_jax_params
-from zipvoice_torch.vocoder.vocos import Vocos
+from zipvoice_torch.vocoder.vocos import build_vocos
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,18 +36,20 @@ def test_istft_matches_jax():
 
 def test_vocos_matches_jax():
     from zipvoice_tpu.vocoder.vocos import Vocos as JaxVocos
+    from zipvoice_tpu.vocoder.vocos import convert_vocos_state_dict
 
     rng = np.random.RandomState(1)
     mel = (0.5 * rng.randn(2, 13, TINY_VOCOS["n_mels"])).astype(np.float32)
     jvocos = JaxVocos(**TINY_VOCOS)
-    params = jax_jit(jvocos.init)(jax.random.PRNGKey(0), jnp.asarray(mel))
-    params = jax.tree.map(
-        lambda a: np.asarray(a) + np.float32(0.05)
-        * np.asarray(rng.randn(*a.shape), np.float32),
-        params,
-    )
+    # flax params from the port's seeded init, perturbed, through the JAX
+    # package's converter: a flax init would trace the vocoder once more
+    vocos = build_vocos(device="cpu", **TINY_VOCOS)
+    params = {"params": convert_vocos_state_dict({
+        k: v.numpy() + np.float32(0.05)
+        * np.asarray(rng.randn(*v.shape), np.float32)
+        for k, v in vocos.state_dict().items()})}
     want = np.asarray(jax_jit(jvocos.apply)(params, jnp.asarray(mel)))
-    vocos = Vocos(**TINY_VOCOS).eval()
+    assert_params_like_init(params, jvocos.init, jnp.asarray(mel))
     vocos.load_state_dict(vocos_state_dict_from_jax_params(params["params"]),
                           strict=True)
     with torch.no_grad():
@@ -59,9 +60,9 @@ def test_vocos_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing every zipvoice_torch module, the training step, every
-    kernel wrapper, the front end, the dialog models and pipelines and the
-    CLIs among them, leaves jax, the JAX package, tools/ and egs/ out of
-    sys.modules."""
+    kernel wrapper, the front end, the dialog models and pipelines, the
+    CLIs and the serving modules among them, leaves jax, the JAX package,
+    tools/ and egs/ out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys, zipvoice_torch\n"
         "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
@@ -82,7 +83,9 @@ def test_port_imports_no_jax():
         " 'zipvoice_torch.bin.infer_zipvoice',"
         " 'zipvoice_torch.models.dialog',"
         " 'zipvoice_torch.infer.dialog_pipeline',"
-        " 'zipvoice_torch.bin.infer_zipvoice_dialog'}\n"
+        " 'zipvoice_torch.bin.infer_zipvoice_dialog',"
+        " 'zipvoice_torch.serving.quantize', 'zipvoice_torch.serving.server',"
+        " 'zipvoice_torch.serving.client'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"
@@ -91,4 +94,4 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 42
+    assert int(r.stdout.split()[-1]) >= 46

@@ -7,6 +7,8 @@ sides run the same weights.  JAX programs are jitted: eager flax spends
 seconds per call compiling op by op on the CPU.
 """
 
+import functools
+
 import numpy as np
 
 import jax
@@ -90,6 +92,38 @@ def jax_jit(fn):
     return run
 
 
+def assert_params_like_init(params, init, *args):
+    """``params`` holds the leaves, by path and shape, of the tree that
+    ``init(PRNGKey(0), *args)`` makes, traced abstractly and not run: the
+    converter that made ``params`` neither dropped nor invented one."""
+    def leaves(tree):
+        return {jax.tree_util.keystr(path): tuple(np.shape(v))
+                for path, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+    want = leaves(jax.eval_shape(init, jax.random.PRNGKey(0), *args))
+    got = leaves(params)
+    assert got == want, (sorted(set(got) ^ set(want)),
+                         {k: (got[k], want[k]) for k in set(got) & set(want)
+                          if got[k] != want[k]})
+
+
+def fast_pipeline(jpipe):
+    """A JAX ``InferencePipeline`` whose sample and vocoder programs are
+    compiled with XLA's backend optimizations off (``jax_jit``): they cost
+    more compile time than these tiny programs run for."""
+    sample_fn, vocode_fn, cache = jpipe._sample_fn, jpipe._vocode_fn, {}
+
+    def fast_sample(*key):
+        if key not in cache:
+            cache[key] = jax_jit(sample_fn(*key))
+        return cache[key]
+
+    vocode = jax_jit(vocode_fn())
+    jpipe._sample_fn = fast_sample
+    jpipe._vocode_fn = lambda: vocode
+    return jpipe
+
+
 def jax_method(flax_model, method, **static):
     """A jitted ``flax_model.apply(params, **inputs, method=method)``."""
     return jax_jit(lambda params, inputs: flax_model.apply(
@@ -131,17 +165,32 @@ def sample_inputs(feat_dim=TINY["feat_dim"], vocab=TINY["vocab_size"],
     )
 
 
+SAMPLE_KW = dict(num_step=3, t_shift=0.5)
+
+
+@functools.cache
+def _jax_sample(distill, guidance_scale):
+    """The JAX package's ``sample`` on ``sample_inputs`` with
+    ``model_pair(distill, seed=int(distill))``'s weights, as numpy (x1,
+    padding mask): computed once a process, since
+    test_torch_zipvoice.py and test_torch_fused_attention.py hold the port
+    to the same one, and each compile costs seconds."""
+    jmodel, params, _ = model_pair(distill=distill, seed=int(distill))
+    x1, pm = jax_method(jmodel, "sample", guidance_scale=guidance_scale,
+                        **SAMPLE_KW)(params, to_jax(sample_inputs()))
+    return np.asarray(x1), np.asarray(pm)
+
+
 def assert_sample_matches(distill, guidance_scale, kernel_config=False):
     """``ZipVoice.sample`` of the port (in the kernel configuration with
     ``kernel_config``) vs the JAX package's on ``sample_inputs``: the same
     padding mask, features within 5e-3."""
-    jmodel, params, tmodel = model_pair(distill=distill, seed=int(distill))
+    _, _, tmodel = model_pair(distill=distill, seed=int(distill))
     set_kernel_config(tmodel, kernel_config)
-    x = sample_inputs()
-    kw = dict(num_step=3, guidance_scale=guidance_scale, t_shift=0.5)
-    x1_j, pm_j = jax_method(jmodel, "sample", **kw)(params, to_jax(x))
-    x1_t, pm_t = tmodel.sample(**to_torch(x), **kw)
-    np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
-    valid = ~np.asarray(pm_j)
-    np.testing.assert_allclose(x1_t.numpy()[valid], np.asarray(x1_j)[valid],
-                               atol=5e-3, rtol=0)
+    x1_j, pm_j = _jax_sample(distill, guidance_scale)
+    x1_t, pm_t = tmodel.sample(**to_torch(sample_inputs()),
+                               guidance_scale=guidance_scale, **SAMPLE_KW)
+    np.testing.assert_array_equal(pm_t.numpy(), pm_j)
+    valid = ~pm_j
+    np.testing.assert_allclose(x1_t.numpy()[valid], x1_j[valid], atol=5e-3,
+                               rtol=0)

@@ -15,6 +15,12 @@ same noise.  The front end (tokenizer, fbank, silence trim, cross-fade)
 runs on the host; sampling and vocoding run on the pipeline's device, and
 each micro-batch ends in a copy to the host, so the time stamps around
 them hold the device's work.
+
+With ``quantize="int8"`` the model's and the vocoder's matrices live on the
+device as int8 with per-channel scales (``serving/quantize.py``), and each
+sampling or vocoding call expands them to their dtypes once, as the JAX
+package's jitted programs do; here the expanded copy lives for the call,
+so it lowers the bytes held between calls, not the peak.
 """
 
 import logging
@@ -48,10 +54,17 @@ BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 class InferencePipeline:
     def __init__(self, model, vocoder, sampling_rate: int = 24000,
                  feat_scale: float = 0.1, seed: int = 0, device="cuda",
-                 tokenizer=None):
+                 tokenizer=None, quantize: Optional[str] = None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize={quantize!r}: None or 'int8'")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
+        self._int8 = None
+        if quantize:
+            from zipvoice_torch.serving.quantize import Int8Weights
+
+            self._int8 = (Int8Weights(self.model), Int8Weights(self.vocoder))
         self.tokenizer = tokenizer
         self.sampling_rate = sampling_rate
         self.feat_scale = feat_scale
@@ -264,7 +277,8 @@ class InferencePipeline:
             return torch.full((B,), n, dtype=torch.int64, device=dev)
 
         with torch.inference_mode():
-            x1, padding_mask = self.model.sample(
+            x1, padding_mask = self._run_model(
+                "sample",
                 tokens=torch.ones((B, S), dtype=torch.int64, device=dev),
                 tokens_lens=full(S), prompt_tokens_lens=full(max(S // 4, 1)),
                 prompt_features=torch.zeros((B, T, F), device=dev),
@@ -294,8 +308,9 @@ class InferencePipeline:
     def _sample_batch_device(self, batch_tokens, prompt_tokens,
                              prompt_features, num_step, guidance_scale,
                              speed, t_shift):
-        """Launch one sample micro-batch and return device tensors
-        (generated features, their lengths, the real batch size).
+        """Queue one sample micro-batch on the device and return its device
+        tensors (generated features, their lengths, the real batch size)
+        without waiting for them: nothing here syncs with the host.
 
         ``prompt_tokens`` may be one token list shared by the batch or one
         list per row; ``prompt_features`` one (T, F) array or one per row;
@@ -370,10 +385,17 @@ class InferencePipeline:
             logging.info(f"sample bucket B={B} S={S} T={T}")
 
         def dev(a):
-            return torch.from_numpy(a).to(self.device)
+            # on the card through pinned memory, asynchronously: no upload
+            # waits for the work already queued on the stream, so a server
+            # can queue this batch behind the one the card is running
+            t = torch.from_numpy(a)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
 
         with torch.inference_mode():
-            x1, padding_mask = self.model.sample(
+            x1, padding_mask = self._run_model(
+                "sample",
                 tokens=dev(tok).long(), tokens_lens=dev(tok_lens).long(),
                 prompt_tokens_lens=dev(ptl).long(), prompt_features=dev(pf),
                 prompt_features_lens=dev(pfl).long(),
@@ -384,6 +406,27 @@ class InferencePipeline:
             x1_wo, wo_lens = strip_prompt(x1, padding_mask,
                                           dev(pfl).long())
         return x1_wo, wo_lens, B_real
+
+    def _run_model(self, method: str, **inputs):
+        """``self.model.<method>(**inputs)``, on the int8 weights expanded
+        once when the pipeline is quantized."""
+        if self._int8 is None:
+            return getattr(self.model, method)(**inputs)
+        return self._int8[0](method, **inputs)
+
+    def _run_vocoder(self, mel: torch.Tensor) -> torch.Tensor:
+        if self._int8 is None:
+            return self.vocoder(mel)
+        return self._int8[1]("forward", mel)
+
+    def weight_bytes(self) -> int:
+        """Bytes of the model's and the vocoder's weights on the device
+        (int8 tensors and their scales when quantized)."""
+        if self._int8 is not None:
+            return sum(w.resident_bytes() for w in self._int8)
+        return sum(p.numel() * p.element_size()
+                   for m in (self.model, self.vocoder)
+                   for p in m.parameters())
 
     def _vocode_chunks(self, feats: List[np.ndarray]) -> List[np.ndarray]:
         """Vocode variable-length mel chunks, batched by frame bucket."""
@@ -401,7 +444,7 @@ class InferencePipeline:
                 mel[j, : feats[i].shape[0]] = feats[i]
             with torch.inference_mode():
                 wav = torch.clamp(
-                    self.vocoder(torch.from_numpy(mel).to(self.device)),
+                    self._run_vocoder(torch.from_numpy(mel).to(self.device)),
                     -1.0, 1.0,
                 ).cpu().numpy()
             for j, i in enumerate(idxs):

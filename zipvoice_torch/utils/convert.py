@@ -5,9 +5,10 @@ checkpoints load directly.  These functions turn a flax parameter tree of
 ``zipvoice_tpu`` (as numpy arrays) into that layout; they are the port's own
 numpy-only copies of the inverse conversions in
 ``zipvoice_tpu/utils/convert.py`` and ``zipvoice_tpu/vocoder/vocos.py``.
-Layout changes undone here: flax Dense kernels (in, out) become Linear
-weights (out, in); (k, C) depthwise filters become Conv1d weights (C, 1, k);
-flax scope names (``layers_0``, ``time_embed_in``, ...) become module paths.
+Layout changes undone here, each key's by ``port_layout``: flax Dense
+kernels (in, out) become Linear weights (out, in); (k, C) depthwise filters
+become Conv1d weights (C, 1, k); flax scope names (``layers_0``,
+``time_embed_in``, ...) become module paths.
 Any tree shaped like the params converts the same way: the tests carry JAX
 gradients and JAX-updated parameters across with these functions.
 """
@@ -31,6 +32,44 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 def _tensors(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in arrays.items()}
+
+
+def port_layout(key: str) -> str:
+    """How the port's tensor under ``key`` lays out the flax leaf that it
+    converts from: "dw" for a depthwise filter (flax (k, C), torch
+    (C, 1, k)), "conv" for the Vocos input conv (flax (k, in, out), torch
+    (out, in, k)), "linear" for any other ``.weight`` but the embeddings'
+    (a flax Dense kernel (in, out), torch (out, in); the transpose leaves
+    the one-axis norm weights as they are), "same" for everything else."""
+    if key.endswith(("depthwise_conv.weight", "dwconv.weight")):
+        return "dw"
+    if key == "backbone.embed.weight":
+        return "conv"
+    if key in ("embed.weight", "spk_embed.weight") or not key.endswith(
+            ".weight"):
+        return "same"
+    return "linear"
+
+
+def from_flax(key: str, a: np.ndarray) -> np.ndarray:
+    """The flax leaf ``a`` in the layout of the port's tensor ``key``."""
+    layout = port_layout(key)
+    if layout == "dw":
+        return a.T[:, None, :]
+    if layout == "conv":
+        return a.transpose(2, 1, 0)
+    return a.T if layout == "linear" else a
+
+
+def to_flax(key: str, a: np.ndarray) -> np.ndarray:
+    """The port's tensor ``key`` (as numpy) in its flax leaf's layout:
+    the inverse of ``from_flax``."""
+    layout = port_layout(key)
+    if layout == "dw":
+        return a[:, 0, :].T
+    if layout == "conv":
+        return a.transpose(2, 1, 0)
+    return a.T if layout == "linear" else a
 
 
 def zipformer_state_dict(tree: Mapping[str, Any], prefix: str = "",
@@ -61,13 +100,11 @@ def zipformer_state_dict(tree: Mapping[str, Any], prefix: str = "",
             k = f"encoders.{i}.{rest}"
         if k.endswith("depthwise_weight"):
             k = k.replace("depthwise_weight", "depthwise_conv.weight")
-            v = v.T[:, None, :]
         elif k.endswith("depthwise_bias"):
             k = k.replace("depthwise_bias", "depthwise_conv.bias")
         elif k.endswith(".kernel"):
             k = k[: -len(".kernel")] + ".weight"
-            v = v.T
-        out[prefix + k] = v
+        out[prefix + k] = from_flax(prefix + k, v)
     return _tensors(out)
 
 
@@ -105,23 +142,22 @@ def vocos_state_dict_from_jax_params(
                 f"{key}.bias": f32(p["bias"])}
 
     sd = {
-        "backbone.embed.weight":
-            f32(params["embed_weight"]).transpose(2, 1, 0),
+        "backbone.embed.weight": f32(params["embed_weight"]),
         "backbone.embed.bias": f32(params["embed_bias"]),
         **norm("backbone.norm", params["norm"]),
         **norm("backbone.final_layer_norm", params["final_layer_norm"]),
-        "head.out.weight": f32(params["head_out"]["kernel"]).T,
+        "head.out.weight": f32(params["head_out"]["kernel"]),
         "head.out.bias": f32(params["head_out"]["bias"]),
     }
     i = 0
     while f"convnext_{i}" in params:
         blk, key = params[f"convnext_{i}"], f"backbone.convnext.{i}"
-        sd[f"{key}.dwconv.weight"] = f32(blk["dwconv_weight"]).T[:, None, :]
+        sd[f"{key}.dwconv.weight"] = f32(blk["dwconv_weight"])
         sd[f"{key}.dwconv.bias"] = f32(blk["dwconv_bias"])
         sd.update(norm(f"{key}.norm", blk["norm"]))
         for lin in ("pwconv1", "pwconv2"):
-            sd[f"{key}.{lin}.weight"] = f32(blk[lin]["kernel"]).T
+            sd[f"{key}.{lin}.weight"] = f32(blk[lin]["kernel"])
             sd[f"{key}.{lin}.bias"] = f32(blk[lin]["bias"])
         sd[f"{key}.gamma"] = f32(blk["gamma"])
         i += 1
-    return _tensors(sd)
+    return _tensors({k: from_flax(k, v) for k, v in sd.items()})
