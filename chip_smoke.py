@@ -95,11 +95,14 @@ are built for sm_90a).  Phases, each of which must pass:
 13. the server: write a ZipVoice-Distill model dir at the published
    widths with a random Vocos, load both in bf16 behind ``TTSEngine``
    (max_batch 8, 4 steps, guidance 3.0) and ``make_handler`` on a thread,
-   warm the buckets the traffic hits, register four speakers (prefixes of
-   one 3 s prompt, as the client makes them), check every route (health,
-   models, /tts cached and inline with its phases >= 0, /v1/audio/speech
-   as wav and pcm: 24 kHz mono wavs, finite, within [-1, 1]; 404 for an
-   unknown voice), then run ``serving/client.py`` as a subprocess (four
+   warm the buckets the traffic hits through the engine's own threads
+   (``TTSEngine.warm``), register four speakers (prefixes of one 3 s
+   prompt, as the client makes them), check every route (health, models,
+   /tts cached and inline with its phases >= 0, /v1/audio/speech as wav and
+   pcm: 24 kHz mono wavs, finite, within [-1, 1]; 404 for an unknown
+   voice), the first /tts's vocode_ms within 2x the median of the same
+   request sent four times more, then run ``serving/client.py`` as a
+   subprocess (four
    speakers, 16 requests at concurrency 1 and 8, texts of 143-181 tokens in
    the 1024- and 1280-frame buckets): a micro-batch of several speakers'
    rows, #1's launches as the gates predict for the recorded buckets and
@@ -107,11 +110,30 @@ are built for sm_90a).  Phases, each of which must pass:
    and the finisher overlapped.  Then one request through the engine
    against ``_sample_batch`` on a fresh pipeline with the same seed (within
    PATH_ATOL), the int8 pipeline's resident weight bytes (below 0.6x
-   bf16's), its allocator peak across one request against bf16's (printed
-   as a ratio; at most bf16's plus the int8 bytes, since the expanded copy
-   lives for one call) and its features against bf16's on the same noise
-   (mean relative |d| < 0.15, #1 launched), and the server's entry point
-   as a subprocess answering /health and one /tts.
+   bf16's), its weights held plus its allocator peak across one request
+   against bf16's (both byte counts printed; below bf16's, since int8
+   expands one stack at a time, and at most bf16's plus the int8 bytes)
+   and its features against bf16's on the same noise (mean relative |d| <
+   0.15, #1 launched), the sample's wall at that request's bucket in int8
+   and in bf16 (printed, alternating, ten each), and the server's entry
+   point as a subprocess answering /health and one /tts;
+14. the trainer's entry points at the ZipVoice base's published widths
+   (f32 parameters, bf16 compute, the Emilia vocabulary): 20 synthetic
+   utterances of 12.4-13.5 s with the first 20 sentences of
+   ``tools/data/en_stream_corpus.txt`` through ``bin/prepare_dataset`` and
+   ``bin/compute_fbank`` (the native .fz codec, or the phase fails); one
+   epoch of ``bin/train_zipvoice`` (--max-duration 110, 2 buckets: two
+   steps at B=8, T=1280), then ``--start-epoch 2`` (resumed from epoch-1:
+   the step count carries on and epoch 2's first batch is an uninterrupted
+   run's); each step's loss finite, its wall and frames/s printed, and
+   #4's and #5's launches equal to the gates' count from each batch's
+   (S, T);
+   ``bin/generate_averaged_model --epoch 2 --avg 2``, whose .pt
+   ``load_model_dir`` loads for one ``generate_sentence`` at (1, 192,
+   1280) with 192 launches of #1; then ``bin/train_zipvoice_distill``
+   stage first (the averaged model as teacher) and stage second (the EMA
+   teacher), two steps each, with #1 (teacher) and #4/#5 (student) at
+   the gates' count.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -119,6 +141,7 @@ CUDA is unavailable or the port is not beside this script.
 """
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -1573,6 +1596,10 @@ SERVE_WARM = [(b, s, t) for b in (1, 2, 4, 8)
 # may exceed bf16's by no more than its own weights.
 INT8_REL_TOL = 0.15
 INT8_BYTES_RATIO = 0.6
+# the first /tts after the engine's warm-up against the same request sent
+# again: its vocode_ms within this multiple of their median
+SERVE_VOCODE_REPEATS = 4
+FIRST_VOCODE_RATIO = 2.0
 
 
 def check_served_wav(what, data):
@@ -1668,20 +1695,25 @@ def phase_serving(card, seed):
             return InferencePipeline(model, vocos, seed=seed, tokenizer=tok,
                                      quantize=quantize)
 
+        # nothing of an earlier phase may be freed inside the measurement
+        gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         pipe = load()
         torch.cuda.synchronize()
         held16 = torch.cuda.memory_allocated() - before
         model = pipe.model
+        engine = server.TTSEngine(pipe, max_batch=8, **kw)
+        # warmed through the engine's own threads and streams, as the
+        # server's --warmup does
         for B, S, T in SERVE_WARM:
-            pipe.warm_bucket(B, S, T, **kw)
+            engine.warm(B, S, T)
         torch.cuda.synchronize()
         print(f"serving: {name} and Vocos in bf16, {len(SERVE_WARM)} "
-              f"buckets warmed, {time.perf_counter() - start:.1f} s into the "
-              f"phase [{card}]", flush=True)
+              f"buckets warmed through the engine, "
+              f"{time.perf_counter() - start:.1f} s into the phase [{card}]",
+              flush=True)
 
-        engine = server.TTSEngine(pipe, max_batch=8, **kw)
         httpd = ThreadingHTTPServer(("127.0.0.1", 0),
                                     server.make_handler(engine, name))
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -1723,12 +1755,15 @@ def phase_serving(card, seed):
                     raise AssertionError(f"/speaker: {code} {body!r}")
             with open(prompt, "rb") as f:
                 prompt_b64 = base64.b64encode(f.read()).decode()
+            cached = {"speaker": "spk0", "text": SERVE_TEXTS[0]}
+            vocode_ms = []
             for what, req in (
-                    ("cached speaker", {"speaker": "spk0",
-                                        "text": SERVE_TEXTS[0]}),
+                    ("cached speaker", cached),
                     ("inline prompt", {"prompt_text": CLI_PROMPT_TEXT,
                                        "prompt_wav_b64": prompt_b64,
-                                       "text": SERVE_TEXTS[2]})):
+                                       "text": SERVE_TEXTS[2]}),
+                    *[(f"cached speaker, again ({i})", cached)
+                      for i in range(1, 1 + SERVE_VOCODE_REPEATS)]):
                 code, _, body = http(url, "/tts", req)
                 out = json.loads(body)
                 if code != 200 or min(out["timing"].values()) < 0:
@@ -1740,6 +1775,18 @@ def phase_serving(card, seed):
                       + ", ".join(f"{k} {v:.1f}"
                                   for k, v in out["timing"].items())
                       + f" [{card}]", flush=True)
+                if req is cached:
+                    vocode_ms.append(out["timing"]["vocode_ms"])
+            # the first request through the warmed engine pays no stall:
+            # its vocoding within 2x the later identical requests' median
+            rest = float(np.median(vocode_ms[1:]))
+            print(f"first /tts vocode_ms {vocode_ms[0]:.2f} vs the median of "
+                  f"the {len(vocode_ms) - 1} identical requests after it "
+                  f"{rest:.2f} ({vocode_ms[0] / rest:.2f}x, limit "
+                  f"{FIRST_VOCODE_RATIO}x) [{card}]", flush=True)
+            if not vocode_ms[0] <= FIRST_VOCODE_RATIO * rest:
+                raise AssertionError(f"first vocode {vocode_ms[0]} ms vs "
+                                     f"{rest} ms: the warm-up left it cold")
             for fmt in ("wav", "pcm"):
                 code, ctype, body = http(url, "/v1/audio/speech", {
                     "model": name, "input": SERVE_TEXTS[1], "voice": "spk1",
@@ -1874,6 +1921,7 @@ def phase_serving(card, seed):
         # int8: the weights held on the card, and the allocator's peak
         # across one request (sample and vocode), each against bf16's
         bf16_bytes = pipe.weight_bytes()
+        gc.collect()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         pipe8 = load("int8")
@@ -1912,9 +1960,10 @@ def phase_serving(card, seed):
               f"request's peak above them) int8 {foot8 / mib:.1f} MiB "
               f"({held8 / mib:.1f} + {peak8 / mib:.1f}) vs bf16 "
               f"{foot16 / mib:.1f} MiB ({held16 / mib:.1f} + "
-              f"{peak16 / mib:.1f}): {foot8 / foot16:.3f}x, the per-call "
-              f"expanded copy included (limit: bf16's plus int8's own "
-              f"{held8 / mib:.1f} MiB); features vs bf16 on the same "
+              f"{peak16 / mib:.1f}): {foot8 / foot16:.3f}x ({foot8} vs "
+              f"{foot16} bytes; limits: below bf16's, and at most bf16's "
+              f"plus int8's own {held8 / mib:.1f} MiB), the stack-at-a-time "
+              f"expansion included; features vs bf16 on the same "
               f"noise: mean relative |d| {rel:.4f} (tol {INT8_REL_TOL}); "
               f"#1 launches {n8} [{card}]", flush=True)
         if not int8_bytes < INT8_BYTES_RATIO * bf16_bytes:
@@ -1923,8 +1972,36 @@ def phase_serving(card, seed):
         if not foot8 <= foot16 + held8:
             raise AssertionError(f"int8 peak {foot8} above bf16's {foot16} "
                                  f"by more than one int8 copy {held8}")
+        if not foot8 < foot16:
+            raise AssertionError(f"int8 held plus peak {foot8} bytes not "
+                                 f"below bf16's {foot16}")
         if not rel < INT8_REL_TOL or n8 <= 0:
             raise AssertionError(f"int8: relative |d| {rel}, #1 {n8}")
+
+        # the sample's wall at this bucket: int8 expands each fm_decoder
+        # stack in every Euler step (a launch for each group of its
+        # tensors), bf16 has its weights
+        def sample_wall(p):
+            p.rng = np.random.RandomState(seed)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p._sample_batch(*args, **sample_kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        walls = {"bf16": [], "int8": []}
+        for order in (("bf16", "int8"), ("int8", "bf16")) * 5:
+            for which in order:
+                walls[which].append(sample_wall(
+                    pipe8 if which == "int8" else pipe))
+        w16, w8 = (float(np.median(walls[k])) for k in ("bf16", "int8"))
+        print(f"int8 vs bf16 sample wall at bucket "
+              f"{sorted(pipe8._seen_buckets)}, {SERVE_NUM_STEP} steps, "
+              f"alternating: int8 median {1e3 * w8:.2f} ms (" + ", ".join(
+                  f"{1e3 * x:.2f}" for x in walls["int8"]) + f"), bf16 "
+              f"median {1e3 * w16:.2f} ms (" + ", ".join(
+                  f"{1e3 * x:.2f}" for x in walls["bf16"]) + f"): "
+              f"{w8 / w16:.3f}x [{card}]", flush=True)
         del pipe, pipe8, fresh, model
         torch.cuda.empty_cache()
 
@@ -1977,6 +2054,249 @@ def phase_serving(card, seed):
     print(f"serving phase: {time.perf_counter() - start:.1f} s wall "
           f"[{card}]", flush=True)
     return launches
+
+
+# phase 14: the trainer's entry points at the base's full width.  20
+# utterances of 12.4-13.5 s (1163-1266 frames, all in the 1280-frame
+# bucket, so every step's T and T/2 pass the gate of #4/#5): with
+# --max-duration 110 and two duration buckets of 10, each bucket emits one
+# batch of 8 when its ninth cut arrives and drops the last two (the
+# trainer's drop_last), so an epoch is 2 steps at B=8, T=1280.  Fewer than
+# 18 cuts would leave every bucket below the budget and the epoch empty.
+TRAIN_CLI_UTTS = 20
+TRAIN_CLI_SECONDS = (12.4, 13.5)
+
+
+def gate_layers(config, S, T):
+    """Layers whose attention weights take a kernel in one forward of a
+    model with ``config``'s widths: each fm_decoder layer whose level
+    (ceil(T / its factor)) reaches the gate, and each text-encoder layer
+    when S does."""
+    from zipvoice_torch.models.zipformer import MIN_SEQ_LEN
+
+    n = sum(layers for ds, layers in zip(
+        config["fm_decoder_downsampling_factor"],
+        config["fm_decoder_num_layers"]) if -(-T // ds) >= MIN_SEQ_LEN)
+    return n + config["text_encoder_num_layers"] * (S >= MIN_SEQ_LEN)
+
+
+def print_steps(card, what, history):
+    for h in history:
+        B, S, T = h["shape"]
+        print(f"  {what} step {h['step']} (epoch {h['epoch']}, B={B} S={S} "
+              f"T={T}): loss {h['loss']:.4f}, wall {h['wall']:.4f} s, "
+              f"{h['frames'] / h['wall']:.0f} frames/s [{card}]", flush=True)
+    if not history or not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"{what}: losses {[h['loss'] for h in history]}")
+
+
+def cli_launches(card, what, fn, want_fn):
+    """Run ``fn`` (a CLI's ``main``) with every launch count at 0 just
+    before it; the launches must equal ``want_fn(history)``.  Returns (the
+    history, the launches, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    history = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launched = launch_counts()
+    want = want_fn(history)
+    print(f"{what}: {len(history)} steps in {seconds:.1f} s, launches "
+          f"{ {k: v for k, v in launched.items() if v} } (the gates "
+          f"predict { {k: v for k, v in want.items() if v} }) [{card}]",
+          flush=True)
+    if launched != want:
+        raise AssertionError(f"{what}: launches {launched}, want {want}")
+    return history, launched, seconds
+
+
+def phase_train_cli(card, seed):
+    """The trainer's entry points at the ZipVoice base's published widths
+    (122.7M f32 parameters, bf16 compute): a synthetic corpus through
+    ``bin/prepare_dataset`` and ``bin/compute_fbank`` (the native .fz
+    codec), one epoch of ``bin/train_zipvoice``, a resumed second epoch,
+    ``bin/generate_averaged_model`` and ``generate_sentence`` on its .pt,
+    then both stages of ``bin/train_zipvoice_distill``, all in process,
+    with the kernels' launches held to the gates' count.  Returns the
+    launches of #1, #4 and #5 in the trainer and distillation runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from zipvoice_torch.bin import (
+        compute_fbank,
+        generate_averaged_model,
+        prepare_dataset,
+        train_zipvoice,
+        train_zipvoice_distill,
+    )
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, emilia_tokens
+    from zipvoice_torch.data import featio
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir
+    from zipvoice_torch.vocoder.vocos import build_vocos
+
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zipvoice_train_")
+    out = {}
+    try:
+        with open(os.path.join(REPO, "tools", "data",
+                               "en_stream_corpus.txt"),
+                  encoding="utf-8") as f:
+            texts = [line.strip() for line in f if line.strip()]
+        seconds = np.linspace(*TRAIN_CLI_SECONDS, TRAIN_CLI_UTTS)
+        rows = []
+        for i, (text, sec) in enumerate(zip(texts, seconds)):
+            wav = os.path.join(tmp, f"utt{i:02d}.wav")
+            save_wav(wav, speech_like_wav(seed + i, seconds=float(sec)),
+                     24000)
+            rows.append(f"utt{i:02d}\t{text}\t{wav}")
+        tsv = os.path.join(tmp, "train.tsv")
+        with open(tsv, "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+        tokens = os.path.join(tmp, "tokens.txt")
+        with open(tokens, "w", encoding="utf-8") as f:
+            f.write("".join(f"{t}\t{i}\n"
+                            for i, t in enumerate(emilia_tokens())))
+        t = time.perf_counter()
+        manifest = prepare_dataset.main([
+            "--tsv-path", tsv, "--prefix", "smoke", "--output-dir",
+            os.path.join(tmp, "manifests")])
+        n_feats = compute_fbank.main([
+            "--manifest", manifest, "--output-dir",
+            os.path.join(tmp, "fbank")])
+        codec = featio.codec()
+        print(f"train CLI: {TRAIN_CLI_UTTS} utterances of "
+              f"{seconds[0]:.1f}-{seconds[-1]:.1f} s, prepare_dataset and "
+              f"compute_fbank ({n_feats} .fz files, codec {codec}) in "
+              f"{time.perf_counter() - t:.1f} s [{card}]", flush=True)
+        if codec != "native" or n_feats != TRAIN_CLI_UTTS:
+            raise AssertionError(f"fbank: codec {codec}, {n_feats} files")
+
+        exp = os.path.join(tmp, "exp")
+        common = ["--train-manifest", manifest, "--token-file", tokens,
+                  "--tokenizer", "emilia", "--max-duration", "110",
+                  "--num-buckets", "2", "--log-interval", "1",
+                  "--seed", str(seed)]
+        train = common + ["--model-name", "zipvoice", "--exp-dir", exp,
+                          "--average-period", "1", "--save-every-n", "2"]
+
+        def train_want(history):
+            want = dict.fromkeys(launch_counts(), 0)
+            for h in history:
+                B, S, T = h["shape"]
+                n = gate_layers(BASE_CONFIG, S, T)
+                want["rel_pos_attention_weights_train"] += n
+                want["rel_pos_attention_weights_bwd"] += n
+            return want
+
+        first, l1, s1 = cli_launches(
+            card, "train_zipvoice --num-epochs 1",
+            lambda: train_zipvoice.main(train + ["--num-epochs", "1"]),
+            train_want)
+        print_steps(card, "train", first)
+        if not all(h["shape"][2] == 1280 for h in first) or any(
+                gate_layers(BASE_CONFIG, *h["shape"][1:]) != 12
+                for h in first):
+            raise AssertionError(f"train batches {[h['shape'] for h in first]}"
+                                 f": not all at T=1280 with 12 gated layers")
+
+        resumed, l2, s2 = cli_launches(
+            card, "train_zipvoice --start-epoch 2 --num-epochs 2",
+            lambda: train_zipvoice.main(
+                train + ["--start-epoch", "2", "--num-epochs", "2"]),
+            train_want)
+        print_steps(card, "resumed", resumed)
+        args = train_zipvoice.get_parser().parse_args(train)
+        sampler, _ = train_zipvoice.make_train_sampler(args)
+        sampler.set_epoch(2)
+        straight = [c.id for c in next(iter(sampler))]
+        print(f"resume from epoch-1: steps {[h['step'] for h in first]} then "
+              f"{[h['step'] for h in resumed]}; epoch 2's first batch "
+              f"{resumed[0]['ids']} (an uninterrupted run's: {straight}) "
+              f"[{card}]", flush=True)
+        if resumed[0]["step"] != first[-1]["step"] + 1 or \
+                resumed[0]["epoch"] != 2 or resumed[0]["ids"] != straight:
+            raise AssertionError("resume did not carry on from epoch-1")
+
+        t = time.perf_counter()
+        avg_pt = generate_averaged_model.main(
+            ["--exp-dir", exp, "--epoch", "2", "--avg", "2"])
+        avg_s = time.perf_counter() - t
+        model, tokenizer = load_model_dir(exp, "zipvoice",
+                                          dtype=torch.bfloat16)
+        vocos = build_vocos(dtype=torch.bfloat16, seed=seed + 1)
+        pipe = InferencePipeline(model, vocos, seed=seed, tokenizer=tokenizer)
+        prompt = os.path.join(tmp, "prompt.wav")
+        save_wav(prompt, speech_like_wav(seed, seconds=3.0), 24000)
+        pipe.generate_sentence(CLI_PROMPT_TEXT, prompt, CLI_TEXT,
+                               num_step=16)  # first touch, not counted
+        (wav, m), n1, _ = counted(
+            card, "generate_sentence on the averaged model", model, 16,
+            lambda: pipe.generate_sentence(CLI_PROMPT_TEXT, prompt, CLI_TEXT,
+                                           num_step=16))
+        check_wav("generate_sentence (averaged)", wav, m["frames"])
+        print(f"generate_averaged_model --epoch 2 --avg 2 in {avg_s:.1f} s; "
+              f"its .pt through load_model_dir: bucket(s) "
+              f"{sorted(pipe._seen_buckets)}, "
+              f"{m['wav_seconds']:.3f} s of wav, #1 launches {n1}, t "
+              f"{m['t']:.4f} s [{card}]", flush=True)
+        if pipe._seen_buckets != {(1, 192, 1280)} or n1 != 192:
+            raise AssertionError(f"averaged model request: "
+                                 f"{pipe._seen_buckets}, #1 {n1}")
+        del model, vocos, pipe
+        torch.cuda.empty_cache()
+
+        def distill_want(history):
+            want = dict.fromkeys(launch_counts(), 0)
+            for h in history:
+                B, S, T = h["shape"]
+                n = gate_layers(BASE_CONFIG, S, T)
+                want["rel_pos_attention_weights_train"] += n
+                want["rel_pos_attention_weights_bwd"] += n
+                # the teacher's two chained one-step solves
+                want["rel_pos_attention_weights"] += 2 * n
+            return want
+
+        d1 = os.path.join(tmp, "distill1")
+        stage1, ld1, _ = cli_launches(
+            card, "train_zipvoice_distill --distill-stage first",
+            lambda: train_zipvoice_distill.main(common + [
+                "--exp-dir", d1, "--distill-stage", "first",
+                "--teacher-checkpoint", avg_pt, "--num-iters", "2"]),
+            distill_want)
+        print_steps(card, "distill first", stage1)
+        stage2, ld2, _ = cli_launches(
+            card, "train_zipvoice_distill --distill-stage second",
+            lambda: train_zipvoice_distill.main(common + [
+                "--exp-dir", os.path.join(tmp, "distill2"),
+                "--distill-stage", "second", "--checkpoint",
+                os.path.join(d1, "checkpoint-2"), "--num-iters", "2"]),
+            distill_want)
+        print_steps(card, "distill second", stage2)
+        # the steps after each run's first
+        steady = first[1:] + resumed[1:]
+        walls = [h["wall"] for h in steady]
+        print(f"train CLI steps {[h['step'] for h in steady]} (after each "
+              f"run's first): wall median {np.median(walls):.4f} s, "
+              f"frames/s median "
+              f"{np.median([h['frames'] / h['wall'] for h in steady]):.0f} "
+              f"[{card}]", flush=True)
+        out = {"train": {k: l1[k] + l2[k] for k in l1},
+               "distill": {k: ld1[k] + ld2[k] for k in ld1}}
+    finally:
+        shutil.rmtree(tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"train CLI phase: {time.perf_counter() - start:.1f} s wall "
+          f"[{card}]", flush=True)
+    return out
 
 
 def print_tensor_core_use(names):
@@ -2069,6 +2389,7 @@ def main(argv=None) -> int:
     cli_launches = phase_cli(card, args.seed)
     dialog_launches = phase_dialog(card, args.seed)
     serving_launches = phase_serving(card, args.seed)
+    train_cli = phase_train_cli(card, args.seed)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -2131,7 +2452,13 @@ def main(argv=None) -> int:
         "zipvoice_dialog_stereo"]
     # and in phase 13's served traffic (the routes and the client's sweep)
     kernels[0]["launches_serving_path"] = serving_launches
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - start:.1f} s",
+    # and #1, #4 and #5 in phase 14's trainer CLI runs (the resumed run
+    # included) and the two distillation stages
+    for k in kernels:
+        for path in ("train", "distill"):
+            if train_cli[path][k["name"]]:
+                k[f"launches_{path}_cli_path"] = train_cli[path][k["name"]]
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,11 +10,10 @@ import pytest
 
 import conftest  # noqa: F401
 
-import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import jax_jit
+from torch_parity import assert_params_like_init, jax_jit, jax_pos_encoding
 from zipvoice_torch.kernels.rel_pos_attention import (
     rel_pos_attention_weights_ref,
 )
@@ -24,7 +23,7 @@ from zipvoice_torch.models.zipformer import (
     set_attention_kernel,
     set_compute_dtype,
 )
-from zipvoice_torch.utils.convert import zipformer_state_dict
+from zipvoice_torch.utils.convert import to_flax, zipformer_state_dict
 
 
 def _inputs(T, B=3, h=4, qd=8, pd=4, seed=0):
@@ -46,7 +45,8 @@ def test_plain_version_matches_pallas_interpret(T):
     )
 
     arrays = _inputs(T)
-    want = np.asarray(jax_weights(*map(jnp.asarray, arrays), interpret=True))
+    want = np.asarray(jax_jit(lambda *a: jax_weights(*a, interpret=True))(
+        *map(jnp.asarray, arrays)))
     got = rel_pos_attention_weights_ref(*map(torch.from_numpy, arrays))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=0)
     # the fully masked row stays finite and uniform
@@ -56,7 +56,6 @@ def test_plain_version_matches_pallas_interpret(T):
 def _module_pair(T, D=32, dtype=jnp.float32, seed=0):
     from zipvoice_tpu.models.zipformer import (
         RelPosAttentionWeights as JaxWeights,
-        compact_rel_pos_encoding as jax_pos,
     )
 
     kw = dict(embed_dim=D, pos_dim=48, num_heads=4, query_head_dim=8,
@@ -66,11 +65,21 @@ def _module_pair(T, D=32, dtype=jnp.float32, seed=0):
     mask = np.zeros((2, T), bool)
     mask[1, -(T // 4):] = True
     jmod = JaxWeights(**kw, dtype=dtype)
-    pos = jax_pos(T, 48)
-    params = jax_jit(jmod.init)(jax.random.PRNGKey(seed), jnp.asarray(x), pos)
-    want = np.asarray(jax_jit(jmod.apply)(
-        params, jnp.asarray(x), pos.astype(dtype), jnp.asarray(mask)
-    ).astype(jnp.float32))
+    pos = jnp.asarray(jax_pos_encoding(T, 48))
+    # the flax params from a seeded port module (no flax init to compile),
+    # checked against the tree flax's init makes
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        source = RelPosAttentionWeights(**kw)
+    params = {"params": {
+        name: {("kernel" if leaf == "weight" else leaf):
+               to_flax(f"{name}.{leaf}", v.detach().numpy())
+               for leaf, v in getattr(source, name).named_parameters()}
+        for name in ("in_proj", "linear_pos")}}
+    assert_params_like_init(params, jmod.init, jnp.asarray(x), pos)
+    want = np.asarray(jax_jit(lambda p, x, pos, mask: jmod.apply(
+        p, x, pos.astype(dtype), mask).astype(jnp.float32))(
+        params, jnp.asarray(x), pos, jnp.asarray(mask)))
     tmod = RelPosAttentionWeights(**kw)
     tmod.load_state_dict(zipformer_state_dict(params["params"]), strict=True)
     return tmod, x, mask, want

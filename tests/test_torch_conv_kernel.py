@@ -38,7 +38,8 @@ def test_plain_version_matches_pallas_interpret(k):
     from zipvoice_tpu.ops.pallas_conv import depthwise_conv1d as jax_conv
 
     v, w, b = _inputs(k)
-    want = np.asarray(jax_conv(*map(jnp.asarray, (v, w, b)), interpret=True))
+    want = np.asarray(jax_jit(lambda *a: jax_conv(*a, interpret=True))(
+        *map(jnp.asarray, (v, w, b))))
     got = depthwise_conv1d_ref(torch.from_numpy(v),
                                torch.from_numpy(w.T.copy()),
                                torch.from_numpy(b))

@@ -303,11 +303,15 @@ def test_suffix_mask_matches_jax():
     )
 
     lens = np.array([40, 33, 17, 1])
-    key = jax.random.PRNGKey(3)
-    want = np.asarray(jax_mask(key, jnp.asarray(lens), 44, (0.5, 1.0),
-                               suffix=True))
-    u = [torch.tensor(np.asarray(jax.random.uniform(k, (4,))))
-         for k in jax.random.split(key)]
+    # the mask and its two draws from one JAX program
+    want, u = jax_jit(lambda seed, lens: (
+        jax_mask(jax.random.PRNGKey(seed), lens, 44, (0.5, 1.0),
+                 suffix=True),
+        [jax.random.uniform(k, (4,))
+         for k in jax.random.split(jax.random.PRNGKey(seed))]))(
+        np.int32(3), jnp.asarray(lens))
+    want = np.asarray(want)
+    u = [torch.tensor(np.asarray(v)) for v in u]
     got = condition_time_mask(*u, torch.from_numpy(lens), 44,
                               mask_percent=ZipVoiceDialog.mask_percent,
                               suffix=ZipVoiceDialog.mask_suffix).numpy()

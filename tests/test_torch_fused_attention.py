@@ -22,6 +22,7 @@ from torch_parity import (
     assert_params_like_init,
     assert_sample_matches,
     jax_jit,
+    jax_pos_encoding,
 )
 from zipvoice_torch.kernels.rel_pos_attention import (
     attention_apply_ref,
@@ -55,7 +56,8 @@ def test_nonlin_plain_version_matches_pallas_interpret():
     )
 
     arrays = _attention_inputs(128)
-    want_w, want_na = jax_nonlin(*map(jnp.asarray, arrays), interpret=True)
+    want_w, want_na = jax_jit(lambda *a: jax_nonlin(*a, interpret=True))(
+        *map(jnp.asarray, arrays))
     got_w, got_na = rel_pos_attention_weights_nonlin_ref(
         *map(torch.from_numpy, arrays))
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=2e-6,
@@ -73,8 +75,8 @@ def test_apply_plain_version_matches_pallas_interpret():
     w = rng.rand(2, 4, 128, 128).astype(np.float32)
     w /= w.sum(-1, keepdims=True)
     v = rng.randn(2, 4, 128, 12).astype(np.float32)
-    want = np.asarray(jax_apply(jnp.asarray(w), jnp.asarray(v),
-                                interpret=True))
+    want = np.asarray(jax_jit(lambda *a: jax_apply(*a, interpret=True))(
+        jnp.asarray(w), jnp.asarray(v)))
     got = attention_apply_ref(torch.from_numpy(w), torch.from_numpy(v))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=0)
 
@@ -86,10 +88,7 @@ def test_layer_kernel_config_matches_jax(monkeypatch):
     the JAX layer with its fused and application kernels in interpret mode
     and its lax conv.  T = 48 (a multiple of 8, as the JAX kernels need),
     row 1 with a padded tail."""
-    from zipvoice_tpu.models.zipformer import (
-        ZipformerEncoderLayer as JaxLayer,
-        compact_rel_pos_encoding as jax_pos,
-    )
+    from zipvoice_tpu.models.zipformer import ZipformerEncoderLayer as JaxLayer
     from zipvoice_tpu.ops import pallas_attention as pa
     from zipvoice_tpu.utils.convert import convert_tts_zipformer
 
@@ -111,7 +110,7 @@ def test_layer_kernel_config_matches_jax(monkeypatch):
     time_emb = rng.randn(2, 1, D).astype(np.float32)
     mask = np.zeros((2, T), bool)
     mask[1, -13:] = True
-    pos = np.asarray(jax_pos(T, 48))
+    pos = jax_pos_encoding(T, 48)
     jlayer = JaxLayer(**kw, use_pallas_attention=True)
     args = tuple(map(jnp.asarray, (x, pos, time_emb, mask)))
     # flax params from the port's init, perturbed, through the JAX

@@ -809,3 +809,162 @@ def test_int8_dequantization_on_the_card_matches_the_cpu(dtype):
     for k in quantized:
         assert got[k].device.type == "cuda" and got[k].dtype == dtype
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# tests/test_train_cli.py's TINY_CFG (that file imports JAX)
+TRAIN_TINY_CFG = dict(
+    fm_decoder_downsampling_factor=[1, 2, 1],
+    fm_decoder_num_layers=[1, 1, 1],
+    fm_decoder_cnn_module_kernel=[7, 7, 7],
+    fm_decoder_feedforward_dim=64,
+    fm_decoder_num_heads=4,
+    fm_decoder_dim=48,
+    text_encoder_num_layers=1,
+    text_encoder_feedforward_dim=48,
+    text_encoder_cnn_module_kernel=5,
+    text_encoder_num_heads=4,
+    text_encoder_dim=32,
+    time_embed_dim=32,
+    text_embed_dim=32,
+    query_head_dim=8,
+    value_head_dim=12,
+    pos_head_dim=4,
+    pos_dim=48,
+    feat_dim=100,
+)
+
+
+@pytest.mark.gpu
+def test_train_cli_on_the_card(tmp_path):
+    """``bin/train_zipvoice`` on the card (its default platform) at
+    TINY_CFG widths: six 6.6 s utterances (619 frames, the 640-frame
+    bucket) and --max-duration 14 make two steps of two; each forward
+    passes the gate at the two full-rate stacks, so #4 and #5 launch twice
+    each a step, 4 and 4 in all, and the losses are finite."""
+    import json
+    import string
+
+    from zipvoice_torch.bin import compute_fbank, prepare_dataset
+    from zipvoice_torch.bin.train_zipvoice import main
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.infer.workload import speech_like_wav
+
+    _cuda()
+    rows = []
+    for i in range(6):
+        wav = str(tmp_path / f"u{i}.wav")
+        save_wav(wav, speech_like_wav(i, seconds=6.6), 24000)
+        rows.append(f"u{i}\thello world number {i}.\t{wav}")
+    (tmp_path / "train.tsv").write_text("\n".join(rows) + "\n")
+    chars = ["_"] + list(string.ascii_lowercase) + list(" .,!?0123456789")
+    tokens = tmp_path / "tokens.txt"
+    tokens.write_text("".join(f"{c}\t{i}\n" for i, c in enumerate(chars)))
+    manifest = prepare_dataset.main([
+        "--tsv-path", str(tmp_path / "train.tsv"), "--output-dir",
+        str(tmp_path / "manifests")])
+    compute_fbank.main(["--manifest", manifest, "--output-dir",
+                        str(tmp_path / "fbank")])
+    (tmp_path / "model.json").write_text(json.dumps({"model": TRAIN_TINY_CFG}))
+    before = (rel_pos_attention_weights_train.launches,
+              rel_pos_attention_weights_bwd.launches)
+    history = main([
+        "--train-manifest", manifest, "--token-file", str(tokens),
+        "--tokenizer", "simple", "--model-config",
+        str(tmp_path / "model.json"), "--exp-dir", str(tmp_path / "exp"),
+        "--num-epochs", "1", "--max-duration", "14", "--num-buckets", "1",
+        "--save-every-n", "0"])
+    assert [h["shape"][::2] for h in history] == [(2, 640), (2, 640)]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert (rel_pos_attention_weights_train.launches - before[0],
+            rel_pos_attention_weights_bwd.launches - before[1]) == (4, 4)
+    assert (tmp_path / "exp" / "epoch-1" / "model.pt").exists()
+
+
+def _serving_pipe(tmp_path, quantize=None):
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    if not (tmp_path / "model.pt").exists():
+        make_model_dir(str(tmp_path), "zipvoice_distill", config=BASE_CONFIG,
+                       vocos_config={})
+    model, tok = load_model_dir(str(tmp_path), "zipvoice_distill",
+                                dtype=torch.bfloat16)
+    vocos = load_vocos(str(tmp_path / "pytorch_model.bin"),
+                       dtype=torch.bfloat16)
+    return InferencePipeline(model, vocos, seed=0, tokenizer=tok,
+                             quantize=quantize)
+
+
+@pytest.mark.gpu
+def test_int8_held_plus_peak_below_bf16(tmp_path):
+    """At the published widths, int8's weights held plus one request's
+    allocator peak above them lie below bf16's: int8 expands one stack at
+    a time, so its transient is one stack's bf16 copy, not the model's."""
+    _cuda()
+    rng = np.random.RandomState(0)
+    F = 100
+    args = ([list(rng.randint(3, 300, 120))], [list(rng.randint(3, 300, 40))],
+            [(0.5 * rng.randn(250, F)).astype(np.float32)])
+    kw = dict(num_step=2, guidance_scale=3.0, speed=[1.0], t_shift=0.5)
+    foot = {}
+    for quantize in (None, "int8"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        pipe = _serving_pipe(tmp_path, quantize)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        pipe._sample_batch(*args, **kw)  # first touch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        feats, lens = pipe._sample_batch(*args, **kw)
+        pipe._vocode_chunks([feats[0, : lens[0]]])
+        torch.cuda.synchronize()
+        foot[quantize] = held + torch.cuda.max_memory_allocated() - start
+        del pipe
+        torch.cuda.empty_cache()
+    assert foot["int8"] < foot[None], foot
+
+
+@pytest.mark.gpu
+def test_warmed_engine_first_vocode_is_warm(tmp_path):
+    """After ``TTSEngine.warm`` at the bucket a request lands in, the
+    engine's first request vocodes within 2x the median of the same
+    request sent four times more."""
+    from zipvoice_torch.serving.server import TTSEngine
+
+    from zipvoice_torch.frontend.batch import bucket_length
+    from zipvoice_torch.infer.pipeline import FRAME_BUCKETS, TOKEN_BUCKETS
+
+    _cuda()
+    pipe = _serving_pipe(tmp_path)
+    rng = np.random.RandomState(1)
+    # a 64-frame prompt of 20 tokens, as warm_bucket's, and a text of 241-300
+    # tokens: 836-1024 frames, so that the request and the warm-up vocode
+    # in the same 1024-frame bucket
+    entry = {"tokens": list(rng.randint(3, 300, 20)),
+             "features": (0.5 * rng.randn(64, 100)).astype(np.float32),
+             "prompt_rms": 0.1}
+    reps = 1
+    while len(pipe.tokenizer.texts_to_token_ids(
+            [" ".join(["hello"] * reps)])[0]) <= 240:
+        reps += 1
+    text = " ".join(["hello"] * reps)
+    n = len(pipe.tokenizer.texts_to_token_ids([text])[0])
+    assert n <= 300
+    S = bucket_length(20 + n + 1, TOKEN_BUCKETS)
+    T = bucket_length(64 + int(np.ceil(64 / 20 * n)), FRAME_BUCKETS)
+    assert T == 1024
+    engine = TTSEngine(pipe, max_batch=1, num_step=2, guidance_scale=3.0)
+    try:
+        engine.warm(1, S, T)
+        vocode_ms = []
+        for _ in range(5):
+            status, _, tm = engine.submit(entry, text).get(timeout=300)
+            assert status == "ok"
+            vocode_ms.append((tm["vocoded"] - tm["device_done"]) * 1e3)
+    finally:
+        engine.close()
+    assert pipe._seen_buckets == {(1, S, T)}
+    assert vocode_ms[0] <= 2.0 * np.median(vocode_ms[1:]), vocode_ms

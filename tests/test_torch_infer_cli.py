@@ -15,7 +15,7 @@ import conftest  # noqa: F401
 
 import torch
 
-from torch_parity import DS
+from torch_parity import DS, fast_pipeline
 from zipvoice_torch.bin.make_model_dir import (
     TINY_CONFIG,
     TINY_VOCOS,
@@ -151,7 +151,8 @@ def test_generate_paths_match_jax(model_dir, jax_side):
     jmodel, params, jtok, jvocos, jvocos_params = jax_side
     model, tok = load_model_dir(str(model_dir), device="cpu")
     vocos = load_vocos(str(model_dir / "pytorch_model.bin"), device="cpu")
-    jpipe = JaxPipeline(jmodel, params, jvocos, jvocos_params, jtok, seed=5)
+    jpipe = fast_pipeline(JaxPipeline(jmodel, params, jvocos, jvocos_params,
+                                      jtok, seed=5))
     tpipe = InferencePipeline(model, vocos, seed=5, device="cpu",
                               tokenizer=tok)
     jfeats, tfeats = [], []

@@ -206,6 +206,39 @@ def test_int8_sample_matches_jax(side):
     assert tpipe.model.fm_decoder.in_proj.weight.device.type == "meta"
 
 
+def test_int8_stack_expansion_equals_whole_copy(side):
+    """(b2) The int8 pipeline, which expands its weights a stack at a time
+    during a call, gives the bits of the same model run on a whole
+    expanded copy of the int8 weights (the previous int8 path); between
+    calls every quantized weight is a meta placeholder again."""
+    d, *_, fpipe = side
+    tpipe = _port_pipeline(d, quantize="int8")
+    wpipe = _port_pipeline(d)
+    for m in (wpipe.model, wpipe.vocoder):
+        sd = m.state_dict()
+        m.load_state_dict(dequantize_state_dict(
+            quantize_state_dict(sd), {k: v.dtype for k, v in sd.items()}))
+    rng = np.random.RandomState(7)
+    V, F = wpipe.tokenizer.vocab_size, CONFIG["feat_dim"]
+    texts = [list(rng.randint(1, V, n)) for n in (26, 17)]
+    prompts = [list(rng.randint(1, V, n)) for n in (10, 8)]
+    feats = [(0.5 * rng.randn(n, F)).astype(np.float32) for n in (50, 37)]
+    got = tpipe._sample_batch(texts, prompts, feats, **KW, speed=1.0)
+    want = wpipe._sample_batch(texts, prompts, feats, **KW, speed=1.0)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    chunks = [got[0][i, :n] for i, n in enumerate(got[1])]
+    for g, w in zip(tpipe._vocode_chunks(chunks),
+                    wpipe._vocode_chunks(chunks)):
+        np.testing.assert_array_equal(g, w)
+    int8 = tpipe._int8[0]
+    assert "" in int8.units and "fm_decoder.encoders.0" in int8.units
+    assert all(p.device.type == "meta"
+               for m in (tpipe.model, tpipe.vocoder)
+               for n, p in m.named_parameters()
+               if n in int8.weights or n in tpipe._int8[1].weights)
+
+
 def _fbank_close(got, want, feat_scale):
     """test_torch_frontend.py's fbank tolerance on two log-mels scaled by
     ``feat_scale``: where the mel exceeds 1e-4, |d| <= 1e-4 + 2e-6 / mel."""
@@ -297,6 +330,35 @@ def test_engine_batches_speakers_and_answers_errors(side):
         engine.close()
         del pipe._sample_batch_device
     assert not engine._sampler.is_alive() and not engine._finisher.is_alive()
+
+
+def test_engine_warm_runs_on_its_own_threads(side):
+    """``TTSEngine.warm`` samples on the engine's sampler thread and
+    vocodes on its finisher thread, at the bucket it was given (B rows
+    vocoded as one batch), and marks the bucket seen."""
+    pipe = side[-1]
+    where = []
+    sample, vocode = pipe._warm_sample_device, pipe._vocode_chunks
+
+    def spy_sample(*a, **k):
+        where.append(("sample", threading.current_thread().name))
+        return sample(*a, **k)
+
+    def spy_vocode(chunks):
+        where.append(("vocode", threading.current_thread().name, len(chunks)))
+        return vocode(chunks)
+
+    pipe._warm_sample_device, pipe._vocode_chunks = spy_sample, spy_vocode
+    engine = server.TTSEngine(pipe, max_batch=2, num_step=1,
+                              guidance_scale=3.0)
+    try:
+        engine.warm(2, 32, 256)
+    finally:
+        engine.close()
+        del pipe._warm_sample_device, pipe._vocode_chunks
+    assert where == [("sample", engine._sampler.name),
+                     ("vocode", engine._finisher.name, 2)]
+    assert (2, 32, 256) in pipe._seen_buckets
 
 
 def test_engine_under_concurrent_load(side):

@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import DS, TINY, jax_jit, model_pair
+from torch_parity import DS, TINY, jax_jit, jax_pos_encoding, model_pair
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.train.optim import ScaledAdam, eden_schedule
 from zipvoice_torch.train.train_step import make_eval_step, make_train_step
@@ -78,10 +78,7 @@ def test_layer_train_grads_match_jax(pinned):
     """One fm_decoder ZipformerEncoderLayer (dim 48, T=27, a padded row)
     with train=True and a batch count: the gradient of every parameter and
     of the input within 2e-4 of the tensor's largest |grad|."""
-    from zipvoice_tpu.models.zipformer import (
-        ZipformerEncoderLayer as JaxLayer,
-        compact_rel_pos_encoding,
-    )
+    from zipvoice_tpu.models.zipformer import ZipformerEncoderLayer as JaxLayer
     from zipvoice_tpu.ops.schedule import layerdrop_schedule
 
     _, params, tmodel = model_pair(seed=4)
@@ -107,7 +104,7 @@ def test_layer_train_grads_match_jax(pinned):
     time_emb = (0.5 * rng.randn(B, 1, D)).astype(np.float32)
     mask = np.arange(T)[None, :] >= np.array([[T], [19]])
     cot = rng.randn(B, T, D).astype(np.float32)
-    pos = compact_rel_pos_encoding(T, TINY["pos_dim"])
+    pos = jax_pos_encoding(T, TINY["pos_dim"])
 
     def loss(p, x):
         out = jlayer.apply({"params": p}, x, pos, jnp.asarray(time_emb),

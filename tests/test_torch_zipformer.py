@@ -9,7 +9,14 @@ import conftest  # noqa: F401
 import jax.numpy as jnp
 import torch
 
-from torch_parity import DS, TINY, jax_method, model_pair, sample_inputs
+from torch_parity import (
+    DS,
+    TINY,
+    jax_jit,
+    jax_method,
+    model_pair,
+    sample_inputs,
+)
 from zipvoice_torch.models.conditioning import (
     avg_upsample_index,
     predict_features_lens,
@@ -79,29 +86,32 @@ def test_integer_conditioning_exact():
 
     rng = np.random.RandomState(0)
     B, T = 64, 300
+    speeds = (1.0, 0.8, 1.3)
     tokens_lens = rng.randint(0, 120, B)
     features_lens = rng.randint(0, T + 1, B)
-    got = avg_upsample_index(torch.from_numpy(tokens_lens),
-                             torch.from_numpy(features_lens), T)
-    want = jc.avg_upsample_index(jnp.asarray(tokens_lens),
-                                 jnp.asarray(features_lens), T)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
     pfl = rng.randint(1, 200, B)
     ptl = rng.randint(1, 60, B)
-    for speed in (1.0, 0.8, 1.3):
+    x1 = rng.randn(B, T, 3).astype(np.float32)
+    mask = np.arange(T)[None, :] >= features_lens[:, None]
+    kept = np.minimum(pfl, features_lens)
+    # the JAX side as one program (eagerly, each op would compile alone)
+    want_index, want_lens, (want_x, want_strip) = jax_jit(
+        lambda tl, fl, pfl, ptl, x1, mask, kept: (
+            jc.avg_upsample_index(tl, fl, T),
+            [jc.predict_features_lens(pfl, ptl, tl, s) for s in speeds],
+            jax_strip(x1, mask, kept)))(
+        *map(jnp.asarray, (tokens_lens, features_lens, pfl, ptl, x1, mask,
+                           kept)))
+
+    got = avg_upsample_index(torch.from_numpy(tokens_lens),
+                             torch.from_numpy(features_lens), T)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_index))
+    for speed, want in zip(speeds, want_lens):
         got = predict_features_lens(
             *map(torch.from_numpy, (pfl, ptl, tokens_lens)), speed
         )
-        want = jc.predict_features_lens(
-            *map(jnp.asarray, (pfl, ptl, tokens_lens)), speed
-        )
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
-    x1 = rng.randn(B, T, 3).astype(np.float32)
-    mask = np.arange(T)[None, :] >= features_lens[:, None]
-    pfl = np.minimum(pfl, features_lens)
-    got_x, got_lens = strip_prompt(*map(torch.from_numpy, (x1, mask, pfl)))
-    want_x, want_lens = jax_strip(*map(jnp.asarray, (x1, mask, pfl)))
-    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    got_x, got_lens = strip_prompt(*map(torch.from_numpy, (x1, mask, kept)))
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_strip))
     np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))

@@ -92,6 +92,30 @@ def jax_jit(fn):
     return run
 
 
+@functools.cache
+def jax_pos_encoding(T, pos_dim):
+    """The JAX package's ``compact_rel_pos_encoding(T, pos_dim)``, as numpy,
+    from one compiled program (run eagerly, each of its ops would compile
+    on its own)."""
+    from zipvoice_tpu.models.zipformer import compact_rel_pos_encoding
+
+    return np.asarray(
+        jax_jit(lambda: compact_rel_pos_encoding(T, pos_dim))())
+
+
+def jax_compile_all(calls):
+    """Each ``(fn, args)`` of ``calls`` lowered in turn (tracing holds the
+    interpreter lock) and then compiled all at once on threads (XLA's
+    compiler does not hold it), with XLA's backend optimizations off: the
+    compiled programs, in order, each to be called with its ``args``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lowered = [jax.jit(fn).lower(*args) for fn, args in calls]
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        return list(pool.map(lambda low: low.compile(_FAST_COMPILE),
+                             lowered))
+
+
 def assert_params_like_init(params, init, *args):
     """``params`` holds the leaves, by path and shape, of the tree that
     ``init(PRNGKey(0), *args)`` makes, traced abstractly and not run: the

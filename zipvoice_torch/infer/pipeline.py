@@ -18,9 +18,9 @@ them hold the device's work.
 
 With ``quantize="int8"`` the model's and the vocoder's matrices live on the
 device as int8 with per-channel scales (``serving/quantize.py``), and each
-sampling or vocoding call expands them to their dtypes once, as the JAX
-package's jitted programs do; here the expanded copy lives for the call,
-so it lowers the bytes held between calls, not the peak.
+sampling or vocoding call expands them to their dtypes one stack at a
+time, so that the expanded bytes alive at once are bounded by the largest
+stack, not the whole model.
 """
 
 import logging
@@ -258,7 +258,21 @@ class InferencePipeline:
                     guidance_scale: float, t_shift: float = 0.5) -> None:
         """Run the sample and vocoder path once at one (batch, token,
         frame) bucket, snapped to the ladders, so that later traffic there
-        finds the kernels built and the allocator warm."""
+        finds the kernels built and the allocator warm.  A server warms
+        through its engine (``TTSEngine.warm``) instead, so that the
+        threads and streams that serve the traffic are the ones warmed."""
+        x1_wo, wo_lens, B = self._warm_sample_device(
+            B, S, T, num_step, guidance_scale, t_shift)
+        n = max(int(wo_lens[0]), 1)
+        # B chunks vocode as one (B, T) batch, the shape real traffic takes
+        self._vocode_chunks([x1_wo[0, :n].float().cpu().numpy()] * B)
+
+    def _warm_sample_device(self, B: int, S: int, T: int, num_step: int,
+                            guidance_scale: float, t_shift: float = 0.5):
+        """Queue ``warm_bucket``'s sample at the bucket that (B, S, T)
+        snaps to: a prompt of min(64, T) zero frames and S ones for tokens.
+        Returns the device tensors (generated features, their lengths, B)
+        as ``_sample_batch_device`` does, every row real."""
         B_b, S_b, T_b = (
             bucket_length(B, BATCH_BUCKETS),
             bucket_length(S, TOKEN_BUCKETS),
@@ -287,11 +301,9 @@ class InferencePipeline:
                 guidance_scale=guidance_scale, t_shift=t_shift,
             )
             x1_wo, wo_lens = strip_prompt(x1, padding_mask, full(min(64, T)))
-        n = max(int(wo_lens[0]), 1)
-        # B chunks vocode as one (B, T) batch, the shape real traffic takes
-        self._vocode_chunks([x1_wo[0, :n].float().cpu().numpy()] * B)
         self._seen_buckets.add((B, S, T))
         logging.info(f"warmed bucket B={B} S={S} T={T}")
+        return x1_wo, wo_lens, B
 
     def _sample_batch(self, batch_tokens, prompt_tokens, prompt_features,
                       num_step, guidance_scale, speed, t_shift):
@@ -409,7 +421,7 @@ class InferencePipeline:
 
     def _run_model(self, method: str, **inputs):
         """``self.model.<method>(**inputs)``, on the int8 weights expanded
-        once when the pipeline is quantized."""
+        a stack at a time when the pipeline is quantized."""
         if self._int8 is None:
             return getattr(self.model, method)(**inputs)
         return self._int8[0](method, **inputs)

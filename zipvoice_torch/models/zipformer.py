@@ -763,8 +763,7 @@ class ZipformerEncoder(nn.Module):
         if train and not _static_zero(dropout_rate):
             # dropout of 0.15 on the whole positional table, whatever the
             # scheduled rate (a literal 0 rate turns it off)
-            keep = torch.rand(pos_emb.shape, generator=gens.device,
-                              device=src.device) < 0.85
+            keep = _rand_uniform(gens, pos_emb.shape, src.device) >= 0.15
             pos_emb = torch.where(keep, pos_emb / 0.85, 0.0)
         if self.time_emb is not None:
             time_emb = self.time_emb(time_emb)[:, None, :]

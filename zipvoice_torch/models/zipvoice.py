@@ -254,6 +254,63 @@ class ZipVoice(nn.Module):
         )
         return x1, padding_mask
 
+    def sample_intermediate(
+        self,
+        tokens: torch.Tensor,
+        tokens_lens: torch.Tensor,
+        features: torch.Tensor,
+        features_lens: torch.Tensor,
+        noise: torch.Tensor,
+        speech_condition_mask: torch.Tensor,
+        t_start,
+        t_end,
+        num_step: int = 1,
+        guidance_scale=0.0,
+        distill: Optional[bool] = None,
+        train: bool = False,
+        dropout_rate=0.0,
+        batch_count=None,
+        gens: Optional[TrainGenerators] = None,
+    ):
+        """Partial-trajectory sampling for distillation training
+        (reference zipvoice.py:488-534): ``num_step`` Euler steps from
+        ``noise`` at ``t_start`` to ``t_end`` (floats or device scalars),
+        the speech condition being ``features`` outside
+        ``speech_condition_mask``.  ``guidance_scale`` may be (B, 1, 1);
+        ``distill`` (the model's own kind by default) makes it a network
+        input.  With ``train`` the backbone runs with its regularizers and
+        dropout, drawn from ``gens``, as the distillation student does.
+        Records gradients unless the caller turns them off.  Returns
+        (x at t_end, padding mask)."""
+        T = features.shape[1]
+        embed = self.forward_text_embed(
+            tokens, tokens_lens, train=train, dropout_rate=dropout_rate,
+            batch_count=batch_count, gens=gens,
+        )
+        text_condition, padding_mask = upsample_text_embed(
+            embed, tokens_lens, features_lens, T
+        )
+        speech_condition = features.masked_fill(
+            speech_condition_mask[:, :, None], 0.0
+        )
+        if distill is None:
+            distill = self.use_guidance_scale_embed
+
+        def velocity_fn(t, x, tc, sc, pm, gs):
+            return self.forward_fm_decoder(
+                t, x, tc, sc, pm, guidance_scale=gs, train=train,
+                dropout_rate=dropout_rate, batch_count=batch_count,
+                gens=gens,
+            )
+
+        x = euler_sample(
+            velocity_fn, x=noise, text_condition=text_condition,
+            speech_condition=speech_condition, padding_mask=padding_mask,
+            num_step=num_step, guidance_scale=guidance_scale,
+            distill=distill, t_start=t_start, t_end=t_end,
+        )
+        return x, padding_mask
+
 
 class ZipVoiceDistill(ZipVoice):
     """Distilled variant: the guidance scale is a network input."""

@@ -3,14 +3,19 @@
 
 Matrix parameters are held on the device as int8 with one f32 scale per
 output channel, about half the bytes of bf16 between calls, and are
-expanded to their compute dtype once per sampling or vocoding call
-(``InferencePipeline(..., quantize="int8")``); activations and
-accumulation keep the model's dtypes.  The expansion is a whole copy of
-the weights in their compute dtype that lives for the call (the JAX
-package's XLA fuses it into the consumers instead), so the peak during a
-request lies above the bf16 pipeline's, by about the int8 bytes, and the
-caching allocator keeps that peak reserved: int8 here lowers the bytes
-held at rest, not the peak.
+expanded to their compute dtype a part of the model at a time during a
+sampling or vocoding call (``InferencePipeline(..., quantize="int8")``);
+activations and accumulation keep the model's dtypes.  Each element of a
+top-level ``nn.ModuleList`` (a U-Net stack of the fm_decoder, the text
+encoder's stack, a Vocos ConvNeXt block) expands its own tensors when its
+forward starts and frees them when it returns; the few tensors outside
+those lists (the embeddings and the input and output projections) are
+expanded for the whole call.  So the expanded bytes alive at once are
+bounded by the largest stack plus those few, not by the whole model (the
+JAX package's XLA fuses the expansion into the consumers instead), and a
+stack that runs once a step expands once a step: in a few launches, one
+for each group of its tensors that share a shape past their first axis,
+held concatenated along it.
 
 The rule is the JAX package's, leaf for leaf: symmetric int8,
 ``scale = amax / 127`` in f32, ``q = clip(round(w / scale), -127, 127)``,
@@ -66,6 +71,13 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor]
     return out
 
 
+def _expand(v: Dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """One quantized tensor as ``q * scale`` computed in f32 and rounded
+    once to ``dtype``: one launch."""
+    return torch.mul(v["q"], v["scale"], out=torch.empty(
+        v["q"].shape, dtype=dtype, device=v["q"].device))
+
+
 def dequantize_state_dict(
     qsd: QuantizedStateDict,
     dtype: Union[torch.dtype, Mapping[str, torch.dtype]] = torch.bfloat16,
@@ -77,12 +89,8 @@ def dequantize_state_dict(
     out = {}
     for key, v in qsd.items():
         if _is_quantized(v):
-            dt = dtype if isinstance(dtype, torch.dtype) else dtype[key]
-            out[key] = torch.mul(
-                v["q"], v["scale"],
-                out=torch.empty(v["q"].shape, dtype=dt,
-                                device=v["q"].device),
-            )
+            out[key] = _expand(v, dtype if isinstance(dtype, torch.dtype)
+                               else dtype[key])
         else:
             out[key] = v
     return out
@@ -98,16 +106,17 @@ def quantized_bytes(qsd: QuantizedStateDict) -> int:
     return n
 
 
-class _Method(nn.Module):
-    """``module.<method>(...)`` as a forward, so that
-    ``torch.func.functional_call`` can run any method of ``module``."""
-
-    def __init__(self, module: nn.Module):
-        super().__init__()
-        self.module = module
-
-    def forward(self, method: str, *args, **kwargs):
-        return getattr(self.module, method)(*args, **kwargs)
+def _unit_of(module: nn.Module, key: str) -> str:
+    """The path of the part of ``module`` that expands the tensor ``key``:
+    the outermost element of an ``nn.ModuleList`` above it, or "" (the
+    whole call) when there is none."""
+    parts = key.split(".")[:-1]
+    sub = module
+    for i, name in enumerate(parts):
+        if isinstance(sub, nn.ModuleList):
+            return ".".join(parts[: i + 1])
+        sub = getattr(sub, name)
+    return ""
 
 
 class Int8Weights:
@@ -116,32 +125,90 @@ class Int8Weights:
     each quantized parameter becomes a placeholder on the meta device, so
     that nothing runs the module on weights it no longer has.
 
-    ``self(method, *args, **kwargs)`` expands the int8 tensors to the
-    dtypes the module had, once, into a copy that lives for the call, and
-    runs ``module.<method>`` on them (``torch.func.functional_call``).  It changes the module for the
-    length of the call, so one thread at a time may call it."""
+    ``self(method, *args, **kwargs)`` runs ``module.<method>`` with the
+    int8 tensors expanded to the dtypes the module had: those outside the
+    module's ``nn.ModuleList``s for the whole call, each list element's
+    in a forward pre-hook of that element, freed by its forward hook.  A
+    part's tensors are held in groups, each concatenated along its first
+    axis (those whose scale runs along that axis and whose other axes and
+    dtype agree), so a group expands in one launch and its tensors are row
+    slices of the result.  The expanded tensors stand in the module's
+    parameter slots only while they live, so one thread at a time may call
+    it."""
 
     def __init__(self, module: nn.Module):
         state = module.state_dict()
         device = next(module.parameters()).device
         self.dtypes = {k: v.dtype for k, v in state.items()}
-        self.weights = {
-            k: {n: t.to(device) for n, t in v.items()}
-            for k, v in quantize_state_dict(state).items() if _is_quantized(v)
-        }
+        quantized = {k: v for k, v in quantize_state_dict(state).items()
+                     if _is_quantized(v)}
+        self.units: Dict[str, list] = {}
+        for key in quantized:
+            self.units.setdefault(_unit_of(module, key), []).append(key)
+        # per part: [(int8, scales, dtype, [(key, first row, end row)])]
+        self._groups: Dict[str, list] = {}
+        self.weights = {}
+        for unit, keys in self.units.items():
+            members: Dict[tuple, list] = {}
+            for key in keys:
+                q, scale = quantized[key]["q"], quantized[key]["scale"]
+                by_row = (scale.shape[0] == q.shape[0]
+                          and all(n == 1 for n in scale.shape[1:]))
+                members.setdefault(
+                    (tuple(q.shape[1:]), self.dtypes[key]) if by_row
+                    else (key,), []).append(key)
+            self._groups[unit] = []
+            for group in members.values():
+                q = torch.cat([quantized[k]["q"] for k in group]).to(device)
+                scale = torch.cat(
+                    [quantized[k]["scale"] for k in group]).to(device)
+                rows, start = [], 0
+                for key in group:
+                    end = start + quantized[key]["q"].shape[0]
+                    rows.append((key, start, end))
+                    self.weights[key] = {"q": q[start:end],
+                                         "scale": scale[start:end]}
+                    start = end
+                self._groups[unit].append(
+                    (q, scale, self.dtypes[group[0]], rows))
+        # each quantized parameter's slot: its owner's parameter dict and
+        # name, and the placeholder that fills it between expansions
+        self._slots = {}
         for key, v in self.weights.items():
             owner, _, name = key.rpartition(".")
-            setattr(module.get_submodule(owner), name, nn.Parameter(
+            placeholder = nn.Parameter(
                 torch.empty(v["q"].shape, dtype=self.dtypes[key],
-                            device="meta"), requires_grad=False))
+                            device="meta"), requires_grad=False)
+            sub = module.get_submodule(owner)
+            setattr(sub, name, placeholder)
+            self._slots[key] = (sub._parameters, name, placeholder)
+        for unit in self.units:
+            if unit:
+                sub = module.get_submodule(unit)
+                sub.register_forward_pre_hook(
+                    lambda m, args, unit=unit: self._swap_in(unit))
+                sub.register_forward_hook(
+                    lambda m, args, out, unit=unit: self._swap_out(unit))
         self.module = module
-        self._method = _Method(module)
+
+    def _swap_in(self, unit: str) -> None:
+        for q, scale, dtype, rows in self._groups.get(unit, ()):
+            full = _expand({"q": q, "scale": scale}, dtype)
+            for key, start, end in rows:
+                params, name, _ = self._slots[key]
+                params[name] = full[start:end]
+
+    def _swap_out(self, unit: str) -> None:
+        for key in self.units.get(unit, ()):
+            params, name, placeholder = self._slots[key]
+            params[name] = placeholder
 
     def __call__(self, method: str, *args, **kwargs):
-        weights = dequantize_state_dict(self.weights, self.dtypes)
-        return torch.func.functional_call(
-            self._method, {"module." + k: v for k, v in weights.items()},
-            (method, *args), kwargs)
+        self._swap_in("")
+        try:
+            return getattr(self.module, method)(*args, **kwargs)
+        finally:
+            self._swap_out("")
 
     def resident_bytes(self) -> int:
         """Bytes of the weights on the device: the int8 tensors, their

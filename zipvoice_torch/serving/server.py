@@ -116,7 +116,8 @@ class TTSEngine:
     far ahead of the finisher.  Each thread enters its own inference mode
     and current device, which are per thread; the pipeline's noise
     generator and bucket set are the sampler's alone.  ``close()`` stops
-    both threads.
+    both threads.  ``warm`` runs a bucket through both threads before
+    traffic comes.
     """
 
     def __init__(self, pipeline, max_batch: int = 8,
@@ -147,6 +148,20 @@ class TTSEngine:
         timing["tokenized"] = time.perf_counter()
         self.q.put((speaker_entry, tokens, done, speed, timing))
         return done
+
+    def warm(self, B: int, S: int, T: int, timeout: float = 600.0) -> None:
+        """Run ``InferencePipeline.warm_bucket``'s sample and vocoding at
+        one bucket through the engine itself: the sample on the sampler's
+        thread and stream, the vocoding on the finisher's.  The library
+        handles, cuBLAS workspaces and allocator pools are per thread or
+        per stream, so warming on another thread would leave them cold for
+        the first request.  Returns once the batch is vocoded."""
+        done: "queue.Queue" = queue.Queue()
+        self.q.put(_Warm(B, S, T, done))
+        for _ in range(bucket_length(B, BATCH_BUCKETS)):
+            status, result, _ = done.get(timeout=timeout)
+            if status != "ok":
+                raise RuntimeError(f"warming B={B} S={S} T={T}: {result}")
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop the threads once the batches already queued are done."""
@@ -179,6 +194,9 @@ class TTSEngine:
                 if first is None:
                     self._inflight.put(None)
                     return
+                if isinstance(first, _Warm):
+                    self._warm_batch(first, copy_stream)
+                    continue
                 batch = [first]
                 deadline = time.perf_counter() + self.batch_window
                 while len(batch) < self.max_batch:
@@ -189,8 +207,9 @@ class TTSEngine:
                         item = self.q.get(timeout=timeout)
                     except queue.Empty:
                         break
-                    if item is None:  # close(): finish this batch first
-                        self.q.put(None)
+                    if item is None or isinstance(item, _Warm):
+                        # close() or a warm-up: finish this batch first
+                        self.q.put(item)
                         break
                     batch.append(item)
                 try:
@@ -228,6 +247,23 @@ class TTSEngine:
                     # blocks while two batches are in flight
                     self._inflight.put((items, host))
 
+    def _warm_batch(self, warm: "_Warm", copy_stream) -> None:
+        """The sampler's part of ``warm``: one warm-up sample, handed to
+        the finisher as a batch of rows that all reply to ``warm.done``."""
+        try:
+            dev = self.pipeline._warm_sample_device(
+                warm.B, warm.S, warm.T, num_step=self.num_step,
+                guidance_scale=self.guidance_scale, t_shift=0.5)
+            host = _to_host(dev, copy_stream)
+        except Exception as e:  # noqa: BLE001
+            logging.exception("warm-up dispatch failed")
+            for _ in range(bucket_length(warm.B, BATCH_BUCKETS)):
+                warm.done.put(("error", str(e), {}))
+            return
+        items = [({"prompt_rms": 0.1}, None, warm.done, 1.0, {})
+                 for _ in range(dev[2])]
+        self._inflight.put((items, host))
+
     def _run_finisher(self):
         pipe = self.pipeline
         with torch.inference_mode(), _on_device(pipe.device):
@@ -257,6 +293,14 @@ class TTSEngine:
                     logging.exception("finish failed")
                     for _, _, done, _, _ in items:
                         done.put(("error", str(e), {}))
+
+
+class _Warm:
+    """A warm-up request on the engine's queue: one (B, S, T) bucket and
+    the queue that its rows reply to."""
+
+    def __init__(self, B: int, S: int, T: int, done: "queue.Queue"):
+        self.B, self.S, self.T, self.done = B, S, T, done
 
 
 def _to_host(dev, copy_stream):
@@ -469,10 +513,9 @@ def main(argv=None):
     p.add_argument("--quantize", type=str, default=None, choices=("int8",),
                    help="weight-only int8: the weights live on the card "
                         "as int8 with per-channel scales and are expanded "
-                        "once per sampling or vocoding call into a copy "
-                        "that lives for the call; this halves the weight "
-                        "bytes held between calls but raises the peak "
-                        "during a request above bf16's")
+                        "one stack at a time during a sampling or vocoding "
+                        "call; this halves the weight bytes held between "
+                        "calls")
     p.add_argument("--platform", type=str, default="cuda",
                    choices=("cuda", "cpu"),
                    help="torch device; without CUDA the server fails "
@@ -508,8 +551,7 @@ def main(argv=None):
     else:
         buckets = []
     for B, S, T in buckets:
-        pipeline.warm_bucket(B, S, T, num_step=args.num_step,
-                             guidance_scale=args.guidance_scale)
+        engine.warm(B, S, T)
     if buckets:
         logging.info(f"warmup done ({len(buckets)} buckets)")
     server = ThreadingHTTPServer(

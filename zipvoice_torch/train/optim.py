@@ -72,6 +72,32 @@ class ScaledAdam(torch.optim.Optimizer):
         self.model_norms = None
         self.model_norm_threshold = None
 
+    def state_dict(self) -> dict:
+        """``torch.optim.Optimizer``'s state (each tensor's moments, RMS
+        and scale sums) plus the step counter and the clipping statistics,
+        everything a resumed run needs to take the same steps."""
+        sd = super().state_dict()
+        for group in sd["param_groups"]:
+            # the rate lives in ``self.lr`` (a schedule may be a closure,
+            # which a checkpoint cannot hold)
+            group.pop("lr", None)
+        sd["scaled_adam"] = {
+            "step_count": self.step_count,
+            "model_norms": self.model_norms,
+            "model_norm_threshold": self.model_norm_threshold,
+        }
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        extra = state_dict.pop("scaled_adam")
+        super().load_state_dict(state_dict)
+        dev = self._params()[0].device
+        self.step_count = extra["step_count"]
+        self.model_norms, self.model_norm_threshold = (
+            None if t is None else t.to(dev)
+            for t in (extra["model_norms"], extra["model_norm_threshold"]))
+
     def _params(self):
         return [p for group in self.param_groups for p in group["params"]]
 

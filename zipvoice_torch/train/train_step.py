@@ -59,12 +59,13 @@ def make_train_step(
     ``schedules=True`` it drives the batch-count schedules through the
     adjusted batch count, and ``dropout_rate=None`` then follows the
     scheduled 0.3 -> 0.1 ramp.  ``train_step.gens`` holds the generators,
-    seeded from ``seed``.
+    seeded from ``seed``.  Keyword arguments of a call go to that call's
+    forward (the stereo model's ``se_weight``).
     """
     device = next(model.parameters()).device
     gens = TrainGenerators(seed, device)
 
-    def train_step(batch):
+    def train_step(batch, **model_kwargs):
         B = batch["features"].shape[0]
         t, noise, span = draw_inputs(gens, batch)
         cond_drop = torch.rand((B,), generator=gens.device,
@@ -83,6 +84,7 @@ def make_train_step(
             noise=noise, t=t, condition_drop_mask=cond_drop,
             speech_condition_mask=span, gens=gens, train=True,
             dropout_rate=dropout_rate, batch_count=batch_count,
+            **model_kwargs,
         )
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]

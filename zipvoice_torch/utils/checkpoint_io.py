@@ -7,14 +7,21 @@ tokens.txt`` (reference zipvoice/bin/infer_zipvoice.py:757-816), optionally
 ``model.safetensors``; the port's modules use that key layout, so a file
 loads with ``strict=True`` and no conversion.  The modules are built on the
 meta device and take the loaded CPU tensors as their parameters, so the
-weights are held once on the host before they move to the device.  The
-training checkpoint (save and resume) is not ported yet.
+weights are held once on the host before they move to the device.
+
+Training checkpoints (``save_checkpoint``/``load_checkpoint``, the
+counterparts of the JAX package's orbax pair) are directories: the model's
+``state_dict`` in the reference layout as ``model.pt`` (loadable by
+``load_torch_state_dict`` and ``--checkpoint``), the trainer's state (the
+ScaledAdam state, the step, the generators) as ``train_state.pt``, and
+``extra.json`` (the sampler state, the batch count, the averaging period).
 """
 
 import json
 import logging
 import os
-from typing import Dict, Optional, Tuple
+import shutil
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -125,3 +132,49 @@ def load_vocos(path: Optional[str], dtype: torch.dtype = torch.float32,
     vocos = _load_into(lambda: Vocos(**vocos_config(sd)), sd)
     set_compute_dtype(vocos.backbone, dtype)
     return vocos.to(device).eval()
+
+
+# --- training checkpoints ----------------------------------------------------
+
+
+def save_checkpoint(path: str, model_state: Mapping[str, torch.Tensor],
+                    train_state: Optional[Dict[str, Any]] = None,
+                    extra: Optional[dict] = None) -> None:
+    """Write the checkpoint directory ``path`` (replacing one that is
+    there): ``model_state`` (moved to the CPU) as ``model.pt``,
+    ``train_state`` as ``train_state.pt`` and ``extra`` as ``extra.json``,
+    each when given.  The directory is written beside and renamed into
+    place, so a reader never sees half of one."""
+    path = os.path.abspath(path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save({"model": {k: v.detach().cpu()
+                          for k, v in model_state.items()}},
+               os.path.join(tmp, "model.pt"))
+    if train_state is not None:
+        torch.save(train_state, os.path.join(tmp, "train_state.pt"))
+    if extra is not None:
+        with open(os.path.join(tmp, "extra.json"), "w") as f:
+            json.dump(extra, f)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict[str, Any]],
+                                        Optional[dict]]:
+    """(model state_dict, train state or None, extra or None) of a
+    checkpoint directory written by ``save_checkpoint``, on the CPU."""
+    model_state = load_torch_state_dict(os.path.join(path, "model.pt"))
+    train_state = None
+    train_path = os.path.join(path, "train_state.pt")
+    if os.path.exists(train_path):
+        train_state = torch.load(train_path, map_location="cpu",
+                                 weights_only=True)
+    extra = None
+    extra_path = os.path.join(path, "extra.json")
+    if os.path.exists(extra_path):
+        with open(extra_path) as f:
+            extra = json.load(f)
+    return model_state, train_state, extra
