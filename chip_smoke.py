@@ -133,7 +133,25 @@ are built for sm_90a).  Phases, each of which must pass:
    1280) with 192 launches of #1; then ``bin/train_zipvoice_distill``
    stage first (the averaged model as teacher) and stage second (the EMA
    teacher), two steps each, with #1 (teacher) and #4/#5 (student) at
-   the gates' count.
+   the gates' count;
+15. the exported engines (``serving/aot.py``): ``bin/export_model`` as
+   subprocesses, beside the rest of the phase, for the base (bf16, 16
+   steps, guidance 1.0) at phase 11's bucket (1, 192, 1280) and for
+   ZipVoice-Distill (4 steps, guidance 3.0) at the three B=1 buckets of
+   phase 13's c=1 traffic; in process, the kernel configuration's engine at
+   (8, 256, 1280) (#2, #3 and #6 at the gates' count uncaptured, no #1) and
+   the default one at phase 3's B=8 bucket, whose request (16 steps and
+   the vocoder) is timed replayed against eager, ten each, alternating;
+   then ``bin/infer_exported`` in process on phase 11's prompt and text
+   (its wav checked, its launches printed), the base engine's programs
+   uncaptured (192 launches of #1) against its replay (bit for bit) and
+   against eager sampling, the same export in f32 (TF32 off) within
+   PATH_ATOL of eager sampling; then the server's entry point with
+   ``--engine-dir --warmup`` under phase 13's client at concurrency 1
+   (every request an engine hit, from ``/health``'s counts) and 8, its
+   P50, audio-s/s and sample ms printed beside phase 13's eager server.
+   Each engine's export, load and capture seconds, file bytes, graph pool
+   bytes and graph nodes are printed.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -2053,7 +2071,7 @@ def phase_serving(card, seed):
         shutil.rmtree(tmp)
     print(f"serving phase: {time.perf_counter() - start:.1f} s wall "
           f"[{card}]", flush=True)
-    return launches
+    return launches, sweep
 
 
 # phase 14: the trainer's entry points at the base's full width.  20
@@ -2299,6 +2317,439 @@ def phase_train_cli(card, seed):
     return out
 
 
+# phase 15: the exported engines.  The base at phase 11's bucket (its
+# prompt and text), bf16 and f32, and in the same directory at phase 3's
+# B=8 bucket, (8, 192, 1280), timed against the eager request; the kernel
+# configuration at (8, 256, 1280); ZipVoice-Distill at the three B=1
+# buckets of phase 13's c=1 traffic behind the server's --engine-dir
+ENGINE_BASE_BUCKET = (1, 192, 1280)
+ENGINE_CONFIG_BUCKET = (8, 256, 1280)
+ENGINE_B8_BUCKET = (8, 192, 1280)
+ENGINE_SERVE_BUCKETS = ((1, 256, 1280), (1, 256, 1024), (1, 192, 1024))
+ENGINE_WALL_REPEATS = 10
+
+
+def engine_inputs(model, B, S, T, seed):
+    """Seeded ``sample`` inputs at one bucket on the card: 3 s prompts
+    (281 frames, 30 tokens) and texts that fill the bucket's frames."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    F = model.feat_dim
+    tok = np.zeros((B, S), np.int64)
+    tok[:, :S - 20] = rng.randint(3, 300, (B, S - 20))
+    pf = np.zeros((B, T, F), np.float32)
+    pf[:, :281] = 0.5 * rng.randn(B, 281, F)
+    return [torch.from_numpy(a).cuda() for a in (
+        tok, np.full((B,), S - 19), np.full((B,), 30), pf,
+        np.full((B,), 281), np.full((B,), T - 60),
+        rng.randn(B, T, F).astype(np.float32))]
+
+
+def engine_stats(card, what, manifest, bucket, engine):
+    b = next(b for b in manifest["buckets"]
+             if (b["B"], b["S"], b["T"]) == bucket)
+    st = engine.stats
+    print(f"{what} engine {b['B']}x{b['S']}x{b['T']}: export "
+          f"{b['export_s']:.1f} s, files {b['bytes'] / 2 ** 20:.2f} MiB, "
+          f"load {st['load_s']:.1f} s, capture {st['capture_s']:.2f} s, "
+          f"graph pool {st['pool_bytes'] / 2 ** 20:.1f} MiB, "
+          f"{st['graph_nodes']} graph nodes [{card}]", flush=True)
+
+
+def replay_check(card, what, model, engine, x, num_step):
+    """The engine's programs uncaptured with every count at 0 first (the
+    launches must be what the gates predict), then captured and replayed:
+    bit for bit the uncaptured output.  Returns (launches, x1)."""
+    import torch
+
+    S, T = x[0].shape[1], x[3].shape[1]
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        want = [t.clone() for t in engine.run(*x)]
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        expected = expected_launches(model, S, T, num_step)
+        engine.prepare(*x)
+        reset_launches()
+        got = engine(*x)
+        torch.cuda.synchronize()
+        replay_launches = sum(launch_counts().values())
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"{what}: uncaptured launches "
+          f"{ {k: v for k, v in launched.items() if v} } (expected "
+          f"{ {k: v for k, v in expected.items() if v} }), replay counts "
+          f"{replay_launches}, replay equals the uncaptured program bit for "
+          f"bit: {same} [{card}]", flush=True)
+    if launched != expected or not any(launched.values()):
+        raise AssertionError(f"{what}: launches {launched}, want {expected}")
+    if not same or replay_launches:
+        raise AssertionError(f"{what}: the replay differs from the "
+                             f"uncaptured program")
+    return launched, want[0]
+
+
+def direct_capture(card, model, engine, x, num_step):
+    """The design the engines are weighed against: eager ``model.sample``
+    captured as one CUDA graph at the engine's bucket, with nothing
+    exported or loaded.  Prints its capture seconds and pool bytes, whether
+    its replay equals the engine's bit for bit, and both replays' median
+    walls, alternating."""
+    import torch
+
+    kw = dict(num_step=num_step, guidance_scale=1.0, t_shift=0.5)
+    start = time.perf_counter()
+    static = [t.clone() for t in x]
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.sample(*static, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = model.sample(*static, **kw)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - start
+        pool = torch.cuda.memory_reserved() - reserved
+        walls = {"engine": [], "direct": []}
+        for i in range(ENGINE_WALL_REPEATS):
+            for which in (("engine", "direct") if i % 2 else
+                          ("direct", "engine")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if which == "engine":
+                    got = engine(*x)
+                else:
+                    graph.replay()
+                torch.cuda.synchronize()
+                walls[which].append(time.perf_counter() - t)
+        same = all(torch.equal(a, b) for a, b in zip(out, got))
+    we, wd = (float(np.median(walls[k])) for k in ("engine", "direct"))
+    print(f"direct capture of eager sample at the base bucket (no export, "
+          f"no load): capture {capture_s:.2f} s (one eager run + capture), "
+          f"graph pool {pool / 2 ** 20:.1f} MiB, replay equals the engine's "
+          f"bit for bit: {same}; replay median {wd * 1e3:.2f} ms against "
+          f"the engine's {we * 1e3:.2f} ms ({ENGINE_WALL_REPEATS} each, "
+          f"alternating) [{card}]", flush=True)
+    del graph, out
+    torch.cuda.empty_cache()
+
+
+def wait_export(card, what, proc, log_path, out_dir):
+    """Wait for an export_model subprocess; its manifest."""
+    if proc.wait(timeout=900) != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"{what} export failed:\n{f.read()[-4000:]}")
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    for b in manifest["buckets"]:
+        print(f"{what} export (bin/export_model subprocess) "
+              f"{b['B']}x{b['S']}x{b['T']}: {b['export_s']:.1f} s, files "
+              f"{b['bytes'] / 2 ** 20:.2f} MiB [{card}]", flush=True)
+    return manifest
+
+
+def phase_engines(card, seed, eager_sweep):
+    """The exported engines on the card: ``bin/export_model`` and
+    ``bin/infer_exported`` on the base, its replay against its uncaptured
+    programs and against eager sampling (bf16, and f32 within PATH_ATOL),
+    the kernel configuration's engine, the B=8 request replayed against
+    eager, and the server's ``--engine-dir`` under phase 13's client.
+    Returns the launches: #1's in the CLI path and uncaptured, the kernel
+    configuration's uncaptured."""
+    import logging
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from zipvoice_torch.bin import infer_exported
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.frontend.audio import load_wav, save_wav
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import (
+        micro_batches,
+        run_request,
+        speech_like_wav,
+    )
+    from zipvoice_torch.models.zipformer import set_kernel_config
+    from zipvoice_torch.serving.aot import (
+        export_sample_program,
+        load_engine_dir,
+    )
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zipvoice_engines_")
+    procs = []
+    try:
+        base, distill = (os.path.join(tmp, n) for n in ("base", "distill"))
+        make_model_dir(base, config=BASE_CONFIG, seed=seed, vocos_config={})
+        make_model_dir(distill, "zipvoice_distill", config=BASE_CONFIG,
+                       seed=seed, vocos_config={})
+        prompt = os.path.join(tmp, "prompt.wav")
+        save_wav(prompt, speech_like_wav(seed, seconds=3.0), 24000)
+
+        def bucket_arg(buckets):
+            return ",".join(":".join(map(str, b)) for b in buckets)
+
+        def export_cli(model_dir, out, buckets, *extra):
+            log_path = out + ".log"
+            with open(log_path, "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "zipvoice_torch.bin.export_model",
+                     "--model-dir", model_dir, "--out-dir", out, "--bf16",
+                     "--buckets", bucket_arg(buckets), *extra],
+                    cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                    stdout=log, stderr=subprocess.STDOUT))
+            return procs[-1], log_path
+
+        # the CLI exports run beside the in-process work below
+        eng_base = os.path.join(tmp, "eng_base")
+        base_export = export_cli(base, eng_base,
+                                 [ENGINE_BASE_BUCKET, ENGINE_B8_BUCKET],
+                                 "--num-step", "16", "--guidance-scale",
+                                 "1.0", "--t-shift", "0.5")
+        eng_serve = os.path.join(tmp, "eng_serve")
+        serve_export = export_cli(
+            distill, eng_serve, ENGINE_SERVE_BUCKETS, "--model-name",
+            "zipvoice_distill", "--num-step", str(SERVE_NUM_STEP),
+            "--guidance-scale", str(SERVE_GUIDANCE))
+
+        model, _ = load_model_dir(base, dtype=torch.bfloat16)
+
+        # (b) the kernel configuration
+        set_kernel_config(model, True)
+        eng_config = os.path.join(tmp, "eng_config")
+        manifest = export_sample_program(model, eng_config,
+                                         [ENGINE_CONFIG_BUCKET])
+        _, engines = load_engine_dir(eng_config, model)
+        engine = engines[ENGINE_CONFIG_BUCKET]
+        config_launches, _ = replay_check(
+            card, "kernel-configuration engine", model, engine,
+            engine_inputs(model, *ENGINE_CONFIG_BUCKET, seed), 16)
+        engine_stats(card, "kernel-configuration", manifest,
+                     ENGINE_CONFIG_BUCKET, engine)
+        set_kernel_config(model, False)
+        del engines, engine
+        torch.cuda.empty_cache()
+
+        # the base export in f32, TF32 off, against eager sampling
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model32, _ = load_model_dir(base, dtype=torch.float32)
+        manifest = export_sample_program(model32, os.path.join(tmp, "f32"),
+                                         [ENGINE_BASE_BUCKET])
+        _, engines = load_engine_dir(os.path.join(tmp, "f32"), model32)
+        x = engine_inputs(model32, *ENGINE_BASE_BUCKET, seed)
+        with torch.inference_mode():
+            got, pm = engines[ENGINE_BASE_BUCKET](*x)
+            want, _ = model32.sample(*x, num_step=16, guidance_scale=1.0,
+                                     t_shift=0.5)
+            # in mel units: the pipeline scales the features by 1/0.1
+            d = ((got - want).abs()[~pm].max() / 0.1).item()
+        engine_stats(card, "f32", manifest, ENGINE_BASE_BUCKET,
+                     engines[ENGINE_BASE_BUCKET])
+        print(f"f32 engine (TF32 off) vs eager sample: max|d| {d:.3e} mel "
+              f"(tol {PATH_ATOL}) [{card}]", flush=True)
+        if not d <= PATH_ATOL:
+            raise AssertionError(f"f32 engine vs eager: {d}")
+        del engines, model32, got, want
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        torch.cuda.empty_cache()
+
+        # (a) the base through the CLIs: export_model (above), then
+        # infer_exported in process, every count at 0 just before
+        manifest = wait_export(card, "base", *base_export, eng_base)
+        out_wav = os.path.join(tmp, "out.wav")
+        messages = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                messages.append(record.getMessage())
+
+        keep = Keep()
+        root = logging.getLogger()
+        level = root.level
+        root.addHandler(keep)
+        root.setLevel(logging.INFO)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        try:
+            code = infer_exported.main([
+                "--engine-dir", eng_base, "--model-dir", base,
+                "--vocoder-path", os.path.join(base, "pytorch_model.bin"),
+                "--prompt-wav", prompt, "--prompt-text", CLI_PROMPT_TEXT,
+                "--text", CLI_TEXT, "--res-wav-path", out_wav])
+        finally:
+            root.removeHandler(keep)
+            root.setLevel(level)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        cli_launches = launch_counts()
+        wav = load_wav(out_wav, 24000)
+        check_wav("infer_exported", wav, wav.shape[-1] // 256)
+        used = [m for m in messages if "(bucket B=" in m]
+        print(f"infer_exported: exit {code} in {cli_s:.1f} s (load of both "
+              f"buckets, capture, replay, vocoder); {used}; "
+              f"{wav.shape[-1] / 24000:.3f} s of wav; launches "
+              f"{ {k: v for k, v in cli_launches.items() if v} } (the "
+              f"uncaptured run and the capture, a replay counts none) "
+              f"[{card}]", flush=True)
+        if code != 0 or "B=1 S=192 T=1280" not in " ".join(used):
+            raise AssertionError(f"infer_exported: exit {code}, {used}")
+        if wav.shape[-1] < 3 * 24000:
+            raise AssertionError(f"infer_exported: {wav.shape[-1]} samples "
+                                 f"for a 144-token text")
+        if cli_launches["rel_pos_attention_weights"] <= 0:
+            raise AssertionError("infer_exported launched no #1")
+
+        # the base directory once in process: the B=1 engine against its
+        # uncaptured programs, eager sampling and a direct capture, then
+        # (d) phase 3's B=8 request replayed against eager, alternating
+        vocos = load_vocos(os.path.join(base, "pytorch_model.bin"),
+                           dtype=torch.bfloat16)
+        eager = InferencePipeline(model, vocos, seed=seed)
+        replay = InferencePipeline(model, vocos, seed=seed)
+        replay.attach_engines(eng_base)
+        engine = replay._engines[ENGINE_BASE_BUCKET]
+        x = engine_inputs(model, *ENGINE_BASE_BUCKET, seed)
+        base_launches, x1 = replay_check(card, "base engine", model, engine,
+                                         x, 16)
+        engine_stats(card, "base", manifest, ENGINE_BASE_BUCKET, engine)
+        with torch.inference_mode():
+            want, pm = model.sample(*x, num_step=16, guidance_scale=1.0,
+                                    t_shift=0.5)
+        d = (x1 - want).abs()[~pm].max().item()
+        print(f"base engine vs eager sample, bf16: max|d| {d:.3e} "
+              f"[{card}]", flush=True)
+        direct_capture(card, model, engine, x, 16)
+        del engine, want, x1
+
+        req = micro_batches(model.feat_dim, seed)[2]
+        replay.warm_engines()
+        engine_stats(card, "B=8 request", manifest, ENGINE_B8_BUCKET,
+                     replay._engines[ENGINE_B8_BUCKET])
+        run_request(eager, req, 16)  # the eager bucket's first touch
+        hits = replay.engine_hits
+        walls = {"eager": [], "replay": []}
+        outs = {}
+        for i in range(ENGINE_WALL_REPEATS):
+            for which in (("eager", "replay") if i % 2 else
+                          ("replay", "eager")):
+                pipe = eager if which == "eager" else replay
+                pipe.rng = np.random.RandomState(seed)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs[which] = run_request(pipe, req, 16)
+                torch.cuda.synchronize()
+                walls[which].append(time.perf_counter() - t)
+        if replay.engine_hits - hits != ENGINE_WALL_REPEATS:
+            raise AssertionError(f"B=8 request: {replay.engine_hits - hits} "
+                                 f"engine hits in {ENGINE_WALL_REPEATS}")
+        d = max(float(np.abs(a[:n] - b[:n]).max()) for a, b, n in zip(
+            outs["eager"][0], outs["replay"][0], outs["eager"][1]))
+        check_outputs(*outs["replay"])
+        we, wr = (float(np.median(walls[k])) for k in ("eager", "replay"))
+        print(f"B=8 request {ENGINE_B8_BUCKET}, 16 steps + vocoder, bf16, "
+              f"{ENGINE_WALL_REPEATS} each alternating: replayed median "
+              f"{wr:.4f} s (" + ", ".join(f"{x:.4f}" for x in walls["replay"])
+              + f"), eager median {we:.4f} s (" + ", ".join(
+                  f"{x:.4f}" for x in walls["eager"]) + f"): {we / wr:.2f}x; "
+              f"features max|d| replay vs eager {d:.3e} mel [{card}]",
+              flush=True)
+        del eager, replay, model, vocos
+        torch.cuda.empty_cache()
+
+        # (c) the server's --engine-dir under phase 13's client
+        wait_export(card, "ZipVoice-Distill", *serve_export, eng_serve)
+        port = free_port()
+        url = f"http://127.0.0.1:{port}"
+        t = time.perf_counter()
+        with open(os.path.join(tmp, "server.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "zipvoice_torch.serving.server",
+                 "--model-dir", distill, "--vocoder-path",
+                 os.path.join(distill, "pytorch_model.bin"), "--port",
+                 str(port), "--engine-dir", eng_serve, "--warmup"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.perf_counter() + 600
+        while True:
+            if procs[-1].poll() is not None:
+                raise AssertionError(
+                    f"server exited {procs[-1].returncode}:\n"
+                    + open(os.path.join(tmp, "server.log")).read()[-4000:])
+            try:
+                code, _, body = http(url, "/health")
+                if code == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() > deadline:
+                raise AssertionError("server did not come up in 600 s")
+            time.sleep(0.5)
+        health = json.loads(body)
+        print(f"server --engine-dir --warmup: /health {health} "
+              f"{time.perf_counter() - t:.1f} s after the start (load, "
+              f"{len(ENGINE_SERVE_BUCKETS)} engines loaded, warmed and "
+              f"captured) [{card}]", flush=True)
+        texts = os.path.join(tmp, "texts.txt")
+        with open(texts, "w", encoding="utf-8") as f:
+            f.write("\n".join(SERVE_TEXTS) + "\n")
+        sweep = []
+        for conc in (1, 8):
+            r = subprocess.run(
+                [sys.executable, "-m", "zipvoice_torch.serving.client",
+                 "--url", url, "--prompt-wav", prompt, "--prompt-text",
+                 CLI_PROMPT_TEXT, "--text-file", texts, "--num-speakers",
+                 "4", "--concurrency", str(conc), "--num-requests", "16"],
+                cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"client failed:\n{r.stderr[-4000:]}")
+            sweep += [line.split("INFO:root:", 1)[-1]
+                      for line in r.stderr.splitlines()
+                      if "concurrency" in line or "server phases" in line]
+            before, health = health, json.loads(http(url, "/health")[2])
+            hits = health["engine_hits"] - before["engine_hits"]
+            misses = health["engine_misses"] - before["engine_misses"]
+            print(f"c={conc} (4 first touches + 16 requests): {hits} engine "
+                  f"hits, {misses} misses [{card}]", flush=True)
+            if conc == 1 and (misses or hits < 20):
+                raise AssertionError(f"c=1: {hits} hits, {misses} misses")
+        print("client against the engines, beside phase 13's eager server "
+              f"(the same traffic, {SERVE_NUM_STEP} steps, bf16):",
+              flush=True)
+        for line in sweep:
+            print(f"  engines: {line} [{card}]", flush=True)
+        for line in eager_sweep:
+            print(f"  eager:   {line} [{card}]", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        shutil.rmtree(tmp)
+    print(f"engines phase: {time.perf_counter() - start:.1f} s wall "
+          f"[{card}]", flush=True)
+    return dict(cli=cli_launches, base=base_launches, config=config_launches)
+
+
 def print_tensor_core_use(names):
     """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
     warp's matrix transpose) in its SASS, from ``cuobjdump``."""
@@ -2388,8 +2839,9 @@ def main(argv=None) -> int:
     del f32_model, f32_pair_run
     cli_launches = phase_cli(card, args.seed)
     dialog_launches = phase_dialog(card, args.seed)
-    serving_launches = phase_serving(card, args.seed)
+    serving_launches, eager_sweep = phase_serving(card, args.seed)
     train_cli = phase_train_cli(card, args.seed)
+    engine_launches = phase_engines(card, args.seed, eager_sweep)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -2458,7 +2910,17 @@ def main(argv=None) -> int:
         for path in ("train", "distill"):
             if train_cli[path][k["name"]]:
                 k[f"launches_{path}_cli_path"] = train_cli[path][k["name"]]
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - start:.1f} s",
+    # and phase 15's engines, uncaptured: #1 in the base engine (and in
+    # infer_exported, whose capture launches each call site once more),
+    # #2, #3 and #6 in the kernel configuration's
+    kernels[0]["launches_engine_path"] = engine_launches["base"][
+        "rel_pos_attention_weights"]
+    kernels[0]["launches_engine_cli_path"] = engine_launches["cli"][
+        "rel_pos_attention_weights"]
+    for k in kernels:
+        if engine_launches["config"][k["name"]]:
+            k["launches_engine_path"] = engine_launches["config"][k["name"]]
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -968,3 +968,143 @@ def test_warmed_engine_first_vocode_is_warm(tmp_path):
         engine.close()
     assert pipe._seen_buckets == {(1, S, T)}
     assert vocode_ms[0] <= 2.0 * np.median(vocode_ms[1:]), vocode_ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rel_pos_attention_weights",
+                                  "rel_pos_attention_weights_nonlin",
+                                  "attention_apply", "depthwise_conv1d"])
+def test_operator_equals_its_cuda_implementation(name):
+    """Each inference kernel's operator (``torch.ops.zipvoice.<name>``, the
+    path a traced program takes) and its wrapper (the eager path, which
+    calls the implementation itself) give the CUDA implementation's output
+    bit for bit, and each counts its launch."""
+    from zipvoice_torch.kernels import depthwise_conv as dc
+    from zipvoice_torch.kernels import rel_pos_attention as ra
+
+    _cuda()
+    q, k, p, pe, mask = _inputs(4, 4, 640, 32, 4, torch.bfloat16, seed=2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    nv = torch.randn(4, 640, 384, generator=g, device="cuda").bfloat16()
+    w = rel_pos_attention_weights(q, k, p, pe, mask)
+    v = torch.randn(4, 4, 640, 12, generator=g, device="cuda").bfloat16()
+    x, cw, cb = _conv_inputs(4, 640, 512, 31, torch.bfloat16, seed=4)
+    impl, wrapper, args = {
+        "rel_pos_attention_weights": (ra._weights_cuda,
+                                      ra.rel_pos_attention_weights,
+                                      (q, k, p, pe, mask)),
+        "rel_pos_attention_weights_nonlin": (
+            ra._nonlin_cuda, ra.rel_pos_attention_weights_nonlin,
+            (q, k, p, pe, mask, nv)),
+        "attention_apply": (ra._apply_cuda, ra.attention_apply, (w, v)),
+        "depthwise_conv1d": (dc._conv_cuda, dc.depthwise_conv1d,
+                             (x, cw, cb)),
+    }[name]
+    before = wrapper.launches
+    got = getattr(torch.ops.zipvoice, name)(*args)
+    eager = wrapper(*args)
+    want = impl(*args)
+    assert wrapper.launches == before + 3
+    for a, b, c in zip(*(t if isinstance(t, tuple) else (t,)
+                         for t in (got, eager, want))):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def _engine_model(monkeypatch, tmp_path, buckets):
+    """A tiny bf16 ZipVoice on the card with #1's gate at 64 frames, and
+    its engines at ``buckets`` (2 steps, CFG 1.0), loaded."""
+    from zipvoice_torch.bin.make_model_dir import TINY_CONFIG
+    from zipvoice_torch.models import zipformer
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+    from zipvoice_torch.serving.aot import (
+        export_sample_program,
+        load_engine_dir,
+    )
+
+    _cuda()
+    monkeypatch.setattr(zipformer, "MIN_SEQ_LEN", 64)
+    model = build_zipvoice(dtype=torch.bfloat16, seed=1, vocab_size=360,
+                           **TINY_CONFIG)
+    export_sample_program(model, str(tmp_path), buckets=buckets,
+                          num_step=2, guidance_scale=1.0)
+    return model, load_engine_dir(str(tmp_path), model)[1]
+
+
+def _engine_inputs(model, B, S, T, seed):
+    rng = np.random.RandomState(seed)
+    F = model.feat_dim
+    tok = np.zeros((B, S), np.int64)
+    tok[:, :40] = rng.randint(3, 300, (B, 40))
+    pf = np.zeros((B, T, F), np.float32)
+    pf[:, :100] = 0.5 * rng.randn(B, 100, F)
+    return [torch.from_numpy(a).cuda() for a in (
+        tok, np.full((B,), 41), np.full((B,), 20), pf, np.full((B,), 100),
+        np.full((B,), 200), rng.randn(B, T, F).astype(np.float32))]
+
+
+@pytest.mark.gpu
+def test_engine_replay_equals_uncaptured_and_buckets_share_a_pool(
+        monkeypatch, tmp_path):
+    """Each bucket's replay equals its programs run uncaptured, bit for
+    bit; the uncaptured run launches #1 and a replay counts nothing; the
+    two buckets' graphs share one memory pool, and the first still replays
+    its own result after the second is captured."""
+    buckets = [(1, 64, 256), (2, 64, 256)]
+    model, engines = _engine_model(monkeypatch, tmp_path, buckets)
+    with torch.inference_mode():
+        want = {}
+        for i, b in enumerate(buckets):
+            x = _engine_inputs(model, *b, seed=i)
+            before = rel_pos_attention_weights.launches
+            want[b] = [t.clone() for t in engines[b].run(*x)]
+            assert rel_pos_attention_weights.launches > before
+            engines[b].prepare(*x)
+            before = rel_pos_attention_weights.launches
+            got = engines[b](*x)
+            assert rel_pos_attention_weights.launches == before
+            for a, w in zip(got, want[b]):
+                assert torch.equal(a, w)
+        pools = {engines[b].graph.pool() for b in buckets}
+        assert len(pools) == 1
+        got = engines[buckets[0]](*_engine_inputs(model, *buckets[0], 0))
+        for a, w in zip(got, want[buckets[0]]):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_engine_batches_back_to_back_keep_their_own_results(
+        monkeypatch, tmp_path):
+    """Two batches of one bucket queued through the pipeline's engine
+    back to back, without waiting: each keeps its own features (what
+    leaves ``_sample_batch_device`` is ``strip_prompt``'s, never the
+    graph's buffers, which the second replay overwrites), equal bit for
+    bit to the same two batches run one at a time."""
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.vocoder.vocos import build_vocos
+
+    model, _ = _engine_model(monkeypatch, tmp_path, [(1, 64, 256)])
+    pipe = InferencePipeline(model, build_vocos(n_mels=100, dim=32,
+                                                intermediate_dim=48,
+                                                num_layers=2))
+    pipe.attach_engines(str(tmp_path))
+    rng = np.random.RandomState(5)
+    batches = [([list(rng.randint(3, 300, 20))], list(rng.randint(3, 300, 20)),
+                (0.5 * rng.randn(100, model.feat_dim)).astype(np.float32))
+               for _ in range(2)]
+    kw = dict(num_step=2, guidance_scale=1.0, speed=1.0, t_shift=0.5)
+
+    def run(sync):
+        pipe.rng = np.random.RandomState(0)
+        out = []
+        for b in batches:
+            x1_wo, lens, _ = pipe._sample_batch_device(*b, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            out.append((x1_wo, lens))
+        return [(x.cpu(), n.cpu()) for x, n in out]
+
+    back_to_back, one_at_a_time = run(False), run(True)
+    assert pipe.engine_hits == 4 and pipe.engine_misses == 0
+    assert not torch.equal(back_to_back[0][0], back_to_back[1][0])
+    for (x, n), (wx, wn) in zip(back_to_back, one_at_a_time):
+        assert torch.equal(x, wx) and torch.equal(n, wn)

@@ -306,8 +306,7 @@ def test_stereo_from_scratch_and_alternating_steps():
 @pytest.mark.parametrize("flag", [
     ["--coordinator-address", "localhost:1"], ["--num-processes", "2"],
     ["--process-id", "1"], ["--num-data-parallel", "2"],
-    ["--per-host-data", "on"], ["--inf-check"], ["--print-diagnostics"],
-    [],
+    ["--per-host-data", "on"], [],
 ])
 def test_waiting_flags_raise_and_cuda_is_the_default(corpus, flag):
     """Each flag whose part waits raises ``NotImplementedError`` naming its
@@ -318,7 +317,7 @@ def test_waiting_flags_raise_and_cuda_is_the_default(corpus, flag):
             "--tokenizer", "simple", "--model-config", cfg, "--exp-dir",
             str(corpus[0] / "never"), *flag]
     if flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP A[56]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             train_zipvoice.main(argv + ["--platform", "cpu"])
     elif not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -85,7 +85,10 @@ def test_port_imports_no_jax():
         " 'zipvoice_torch.infer.dialog_pipeline',"
         " 'zipvoice_torch.bin.infer_zipvoice_dialog',"
         " 'zipvoice_torch.serving.quantize', 'zipvoice_torch.serving.server',"
-        " 'zipvoice_torch.serving.client'}\n"
+        " 'zipvoice_torch.serving.client', 'zipvoice_torch.serving.aot',"
+        " 'zipvoice_torch.bin.export_model',"
+        " 'zipvoice_torch.bin.infer_exported',"
+        " 'zipvoice_torch.utils.diagnostics'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"

@@ -33,8 +33,6 @@ _WAITING = {
     "coordinator_address": "multi-process training (ROADMAP A5e)",
     "num_processes": "multi-process training (ROADMAP A5e)",
     "process_id": "multi-process training (ROADMAP A5e)",
-    "inf_check": "utils/diagnostics.py (ROADMAP A6)",
-    "print_diagnostics": "utils/diagnostics.py (ROADMAP A6)",
 }
 
 
@@ -140,7 +138,9 @@ def get_parser():
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--tensorboard", action="store_true")
-    p.add_argument("--inf-check", action="store_true")
+    p.add_argument("--inf-check", action="store_true",
+                   help="on a non-finite loss, name the modules whose "
+                        "outputs are non-finite, then stop")
     p.add_argument("--scan-oom", action="store_true",
                    help="before training, run one forward and backward on "
                         "the largest bucket shape to surface OOM early "
@@ -148,7 +148,9 @@ def get_parser():
     p.add_argument("--profile-dir", type=str, default=None,
                    help="write a torch.profiler trace (Chrome JSON) of "
                         "batches 10-14 of this run into this dir")
-    p.add_argument("--print-diagnostics", action="store_true")
+    p.add_argument("--print-diagnostics", action="store_true",
+                   help="print the stats of every module output, weight "
+                        "and gradient on one batch, then exit")
     return p
 
 
@@ -294,6 +296,44 @@ def resume_sampler_state(state: dict, epoch: int) -> dict:
     return state
 
 
+def probe_inputs(batch, device):
+    """The model's evaluation forward on ``batch`` (zero noise, t = 0.5, a
+    generator of its own for the condition span), as the JAX trainer's
+    diagnostics run it."""
+    from zipvoice_torch.models.zipformer import TrainGenerators
+
+    B = batch["features"].shape[0]
+    return dict(batch, noise=torch.zeros_like(batch["features"]),
+                t=torch.full((B, 1, 1), 0.5, device=device),
+                gens=TrainGenerators(0, device), train=False)
+
+
+def print_diagnostics(model, batch) -> None:
+    """--print-diagnostics: dim-wise percentile stats of every module
+    output, every parameter and every parameter gradient on one batch
+    (reference diagnostics.py:29-570), printed."""
+    from zipvoice_torch.utils.diagnostics import (
+        collect_module_stats,
+        collect_tree_stats,
+        format_stats,
+    )
+
+    device = batch["features"].device
+    print("==== module outputs ====")
+    print(format_stats(collect_module_stats(
+        model, **probe_inputs(batch, device))))
+    params = dict(model.named_parameters())
+    print("==== parameters ====")
+    print(format_stats(collect_tree_stats(params)))
+    model.zero_grad(set_to_none=True)
+    # the same forward (fresh generators: the same condition span)
+    model(**probe_inputs(batch, device)).backward()
+    print("==== parameter grads ====")
+    print(format_stats(collect_tree_stats(
+        {n: p.grad for n, p in params.items() if p.grad is not None})))
+    model.zero_grad(set_to_none=True)
+
+
 class Profiler:
     """A torch.profiler trace of batches 10-14 of this run (counted from
     the invocation, so it also fires on resumed runs), written as Chrome
@@ -431,6 +471,10 @@ def main(argv=None):
     n_params = sum(p.numel() for p in model.parameters())
     logging.info(f"model parameters: {n_params / 1e6:.1f}M")
 
+    if args.print_diagnostics:
+        print_diagnostics(model, on_device(sample_batch, device))
+        return []
+
     # ---- optimizer and steps ----------------------------------------------
     per_epoch = batches_per_epoch(args, sampler, cuts)
     if args.scheduler == "fixed":
@@ -531,6 +575,11 @@ def main(argv=None):
 
     # ---- loop -------------------------------------------------------------
     profiler = Profiler(args.profile_dir)
+    monitor = None
+    if args.inf_check:
+        from zipvoice_torch.utils.diagnostics import NonfiniteMonitor
+
+        monitor = NonfiniteMonitor(model)
     tracker = MetricsTracker()
     t_start = time.time()
     saved_iters = []
@@ -554,8 +603,21 @@ def main(argv=None):
         for batch, kw in batch_iter:
             t0 = time.perf_counter()
             try:
+                if monitor is not None:
+                    monitor.clear()
                 metrics = train_step(on_device(batch, device), **kw)
                 loss = float(metrics["loss"])
+                if monitor is not None and not np.isfinite(loss):
+                    # the modules whose outputs went non-finite in this
+                    # step's forward, first the one where they arose (the
+                    # reference's hooks.py:26-97)
+                    found = list(monitor.found())[:8] or (
+                        "(forward clean; gradients?)")
+                    logging.error(f"--inf-check: non-finite module "
+                                  f"outputs: {found}")
+                    raise RuntimeError(
+                        f"non-finite loss at step {train_step.step}: {loss}"
+                        f"; non-finite module outputs: {found}")
             except Exception:
                 # the offending batch and model, for a post-mortem
                 # (reference train_zipvoice.py:536-549,769-795)

@@ -71,6 +71,45 @@ class InferencePipeline:
         self.feature_extractor = VocosFbank()
         self.rng = np.random.RandomState(seed)
         self._seen_buckets = set()
+        self._engines = None
+        self._engine_manifest = None
+        # samples served by an exported engine, and those that found none
+        # for their bucket or settings
+        self.engine_hits = 0
+        self.engine_misses = 0
+
+    def attach_engines(self, engine_dir: str) -> None:
+        """Serve the shape buckets of an exported engine directory
+        (``serving/aot.py``, ``bin/export_model``) from its programs,
+        captured as CUDA graphs on the card, instead of running the model's
+        code.  Buckets and settings the directory lacks take the model's
+        path.  Raises ``ValueError`` if the engines were exported from a
+        model or setting other than this pipeline's; a quantized pipeline
+        attaches none (the engines take the model's own weights)."""
+        if self._int8 is not None:
+            logging.warning("engines not attached: the pipeline is int8, "
+                            "and the engines run the model's own weights")
+            return
+        from zipvoice_torch.serving.aot import load_engine_dir
+
+        self._engine_manifest, self._engines = load_engine_dir(
+            engine_dir, self.model)
+        logging.info(
+            f"attached {len(self._engines)} exported engine(s) from "
+            f"{engine_dir}: {sorted(self._engines)}"
+        )
+
+    def warm_engines(self) -> int:
+        """Run every attached engine once at its (B, S, T) bucket, which
+        captures its graph, then strip and vocode at B, as ``warm_bucket``
+        does.  Returns the number of engines warmed."""
+        if not self._engines:
+            return 0
+        m = self._engine_manifest
+        for B, S, T in sorted(self._engines):
+            self.warm_bucket(B, S, T, m["num_step"], m["guidance_scale"],
+                             m["t_shift"])
+        return len(self._engines)
 
     def _prompt(self, prompt_wav_path: str, target_rms: float,
                 trim: bool):
@@ -285,22 +324,17 @@ class InferencePipeline:
             )
             B, S, T = B_b, S_b, T_b
         F = self.model.feat_dim
-        dev = self.device
 
         def full(n):
-            return torch.full((B,), n, dtype=torch.int64, device=dev)
+            return np.full((B,), n, np.int64)
 
-        with torch.inference_mode():
-            x1, padding_mask = self._run_model(
-                "sample",
-                tokens=torch.ones((B, S), dtype=torch.int64, device=dev),
-                tokens_lens=full(S), prompt_tokens_lens=full(max(S // 4, 1)),
-                prompt_features=torch.zeros((B, T, F), device=dev),
-                prompt_features_lens=full(min(64, T)), features_lens=full(T),
-                noise=torch.zeros((B, T, F), device=dev), num_step=num_step,
-                guidance_scale=guidance_scale, t_shift=t_shift,
-            )
-            x1_wo, wo_lens = strip_prompt(x1, padding_mask, full(min(64, T)))
+        x1_wo, wo_lens = self._sample_device(
+            dict(tokens=np.ones((B, S), np.int64), tokens_lens=full(S),
+                 prompt_tokens_lens=full(max(S // 4, 1)),
+                 prompt_features=np.zeros((B, T, F), np.float32),
+                 prompt_features_lens=full(min(64, T)), features_lens=full(T),
+                 noise=np.zeros((B, T, F), np.float32)),
+            num_step, guidance_scale, t_shift)
         self._seen_buckets.add((B, S, T))
         logging.info(f"warmed bucket B={B} S={S} T={T}")
         return x1_wo, wo_lens, B
@@ -396,28 +430,73 @@ class InferencePipeline:
             self._seen_buckets.add((B, S, T))
             logging.info(f"sample bucket B={B} S={S} T={T}")
 
-        def dev(a):
-            # on the card through pinned memory, asynchronously: no upload
-            # waits for the work already queued on the stream, so a server
-            # can queue this batch behind the one the card is running
-            t = torch.from_numpy(a)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
-
-        with torch.inference_mode():
-            x1, padding_mask = self._run_model(
-                "sample",
-                tokens=dev(tok).long(), tokens_lens=dev(tok_lens).long(),
-                prompt_tokens_lens=dev(ptl).long(), prompt_features=dev(pf),
-                prompt_features_lens=dev(pfl).long(),
-                features_lens=dev(fl).long(), noise=dev(noise),
-                num_step=num_step, guidance_scale=guidance_scale,
-                t_shift=t_shift,
-            )
-            x1_wo, wo_lens = strip_prompt(x1, padding_mask,
-                                          dev(pfl).long())
+        x1_wo, wo_lens = self._sample_device(
+            dict(tokens=tok, tokens_lens=tok_lens, prompt_tokens_lens=ptl,
+                 prompt_features=pf, prompt_features_lens=pfl,
+                 features_lens=fl, noise=noise),
+            num_step, guidance_scale, t_shift)
         return x1_wo, wo_lens, B_real
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the pipeline's device: on the card through
+        pinned memory, asynchronously, so that no upload waits for the
+        work already queued on the stream and a server can queue this
+        batch behind the one the card is running."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _engine_for(self, B: int, S: int, T: int, num_step: int,
+                    guidance_scale: float, t_shift: float):
+        """The attached engine that serves this bucket and these settings,
+        or None (an ``engine miss`` line when engines are attached)."""
+        if self._engines is None:
+            return None
+        m = self._engine_manifest
+        settings = (num_step, guidance_scale, t_shift)
+        baked = (m["num_step"], m["guidance_scale"], m["t_shift"])
+        eng = self._engines.get((B, S, T)) if settings == baked else None
+        if eng is None:
+            self.engine_misses += 1
+            logging.info(
+                f"engine miss: bucket B={B} S={S} T={T} with (num_step, "
+                f"guidance_scale, t_shift) {settings}; the engines have "
+                f"{sorted(self._engines)} at {baked}"
+            )
+        else:
+            self.engine_hits += 1
+        return eng
+
+    def _sample_device(self, host, num_step: int, guidance_scale: float,
+                       t_shift: float):
+        """Queue the sample of ``sample``'s inputs, given as host arrays by
+        name, and return its device tensors (generated features with the
+        prompt stripped, their lengths): through the attached engine of
+        their bucket when there is one, else through the model.
+        ``strip_prompt`` makes new tensors on this stream, so nothing
+        returned is the engine's graph buffer, which its next replay
+        overwrites."""
+        names = ("tokens", "tokens_lens", "prompt_tokens_lens",
+                 "prompt_features", "prompt_features_lens", "features_lens",
+                 "noise")
+        inputs = {}
+        for n in names:
+            t = self._upload(host[n])
+            inputs[n] = t if t.is_floating_point() else t.long()
+        B, S = host["tokens"].shape
+        T = host["noise"].shape[1]
+        with torch.inference_mode():
+            eng = self._engine_for(B, S, T, num_step, guidance_scale,
+                                   t_shift)
+            if eng is not None:
+                x1, padding_mask = eng(*inputs.values())
+            else:
+                x1, padding_mask = self._run_model(
+                    "sample", **inputs, num_step=num_step,
+                    guidance_scale=guidance_scale, t_shift=t_shift)
+            return strip_prompt(x1, padding_mask,
+                                inputs["prompt_features_lens"])
 
     def _run_model(self, method: str, **inputs):
         """``self.model.<method>(**inputs)``, on the int8 weights expanded

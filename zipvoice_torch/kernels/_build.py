@@ -105,6 +105,17 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def untraced(t: torch.Tensor) -> bool:
+    """True for a plain tensor while nothing traces (no ``torch.export``,
+    ``torch.compile`` or other dispatch mode at work).  An operator's
+    wrapper then calls the implementation itself: a call through
+    ``torch.ops`` costs tens of Python frames of the dispatcher's custom-op
+    layers, host time on a host-bound path.  A traced call goes through the
+    operator, so that the program holds it."""
+    return (not torch.compiler.is_compiling() and type(t) is torch.Tensor
+            and not torch._C._len_torch_dispatch_stack())
+
+
 def require_cuda(t: torch.Tensor) -> None:
     """A wrapper's guard: a tensor that is not on the CPU must be on CUDA."""
     if t.device.type != "cuda":

@@ -15,7 +15,10 @@ counts its launches in ``<wrapper>.launches``:
 Both are in ``zipvoice_torch/csrc/depthwise_conv.cu``, whose header says
 what bounds them on an H100 and how the design answers that.
 ``depthwise_conv1d_trainable`` joins them in a ``torch.autograd.Function``
-(the JAX package's ``depthwise_conv1d_vjp``).
+(the JAX package's ``depthwise_conv1d_vjp``).  The forward wrapper calls
+the operator ``zipvoice::depthwise_conv1d`` (CUDA: the kernel; CPU: the
+plain version), which ``torch.export`` can trace and a CUDA graph capture;
+outside tracing it calls the implementation itself (``_build.untraced``).
 
 Layouts are the port's: activations (B, T, C) with channels contiguous, the
 filter (C, k), which is the reference parameter ``depthwise_conv.weight``
@@ -33,6 +36,7 @@ from zipvoice_torch.kernels._build import (
     load_library,
     raise_on,
     require_cuda,
+    untraced,
 )
 
 _SOURCE = "depthwise_conv"
@@ -134,14 +138,9 @@ def _check(v, w, b=None, g=None):
         raise ValueError(f"unsupported sizes B={B}, T={T}")
 
 
-def depthwise_conv1d(v: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
-    """SAME-padded depthwise conv over time plus bias, taps summed in f32,
-    in v's dtype: v (B, T, C), w (C, k), b (C,) -> (B, T, C).  CUDA
-    tensors (f32 or bf16, contiguous, one dtype, k in ``KERNEL_SIZES``) run
-    the kernel; CPU tensors run the plain version."""
-    if v.device.type == "cpu":
-        return depthwise_conv1d_ref(v, w, b)
+def _conv_cuda(v: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA implementation: the hand-written kernel."""
     require_cuda(v)
     _check(v, w, b=b)
     B, T, C = v.shape
@@ -154,6 +153,31 @@ def depthwise_conv1d(v: torch.Tensor, w: torch.Tensor,
     raise_on(err, "depthwise_conv1d")
     depthwise_conv1d.launches += 1
     return out
+
+
+_conv_op = torch.library.custom_op(
+    "zipvoice::depthwise_conv1d", _conv_cuda, mutates_args=(),
+    device_types="cuda")
+_conv_op.register_kernel("cpu")(depthwise_conv1d_ref)
+
+
+@_conv_op.register_fake
+def _(v, w, b):
+    return torch.empty_like(v)
+
+
+def depthwise_conv1d(v: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """SAME-padded depthwise conv over time plus bias, taps summed in f32,
+    in v's dtype: v (B, T, C), w (C, k), b (C,) -> (B, T, C) (traced,
+    through the operator ``zipvoice::depthwise_conv1d``).  CUDA tensors
+    (f32 or bf16, contiguous, one dtype, k in ``KERNEL_SIZES``) run the
+    kernel; CPU tensors run the plain version."""
+    if not untraced(v):
+        return _conv_op(v, w, b)
+    if v.device.type == "cpu":
+        return depthwise_conv1d_ref(v, w, b)
+    return _conv_cuda(v, w, b)
 
 
 depthwise_conv1d.launches = 0

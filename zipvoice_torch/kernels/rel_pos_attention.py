@@ -29,10 +29,20 @@ Each source's header says what bounds it on an H100 and how its design
 answers that.
 ``rel_pos_attention_weights_trainable`` joins the training pair in a
 ``torch.autograd.Function``.
+
+The three inference wrappers (the weights, the fused weights and the
+application) are also operators registered with ``torch.library``
+(``zipvoice::<wrapper>``): the CUDA implementation launches the kernel,
+the CPU implementation is the plain version, and a fake implementation
+gives the output shapes, so that ``torch.export`` traces them into a
+program (``serving/aot.py``) and a CUDA graph captures their launches.
+Outside tracing a wrapper calls the implementation itself
+(``_build.untraced``).
 """
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +52,7 @@ from zipvoice_torch.kernels._build import (
     load_library,
     raise_on,
     require_cuda,
+    untraced,
 )
 
 _SOURCE = "rel_pos_attention"
@@ -270,19 +281,10 @@ def _check(q, k, p, pe, key_padding_mask=None, g=None, w=None, nv=None):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def rel_pos_attention_weights(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    p: torch.Tensor,
-    pe: torch.Tensor,
-    key_padding_mask: torch.Tensor,
-) -> torch.Tensor:
-    """softmax_j(q_i.k_j + p_i.pe[j-i+T-1]; masked keys -> -1000), shape
-    (B, h, T, T) in q's dtype.  CUDA tensors (f32 or bf16, contiguous) run
-    the hand-written kernel (bf16 on the tensor cores); CPU tensors run the
-    plain version."""
-    if q.device.type == "cpu":
-        return rel_pos_attention_weights_ref(q, k, p, pe, key_padding_mask)
+def _weights_cuda(q: torch.Tensor, k: torch.Tensor, p: torch.Tensor,
+                  pe: torch.Tensor, key_padding_mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """The operator's CUDA implementation: the hand-written kernel."""
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask)
     if q.dtype == torch.bfloat16 and (p.data_ptr() % 8 or pe.data_ptr() % 8):
@@ -302,6 +304,37 @@ def rel_pos_attention_weights(
     raise_on(err, "rel_pos_attention_weights")
     rel_pos_attention_weights.launches += 1
     return out
+
+
+_weights_op = torch.library.custom_op(
+    "zipvoice::rel_pos_attention_weights", _weights_cuda, mutates_args=(),
+    device_types="cuda")
+_weights_op.register_kernel("cpu")(rel_pos_attention_weights_ref)
+
+
+@_weights_op.register_fake
+def _(q, k, p, pe, key_padding_mask):
+    B, h, T, _ = q.shape
+    return q.new_empty((B, h, T, T))
+
+
+def rel_pos_attention_weights(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    p: torch.Tensor,
+    pe: torch.Tensor,
+    key_padding_mask: torch.Tensor,
+) -> torch.Tensor:
+    """softmax_j(q_i.k_j + p_i.pe[j-i+T-1]; masked keys -> -1000), shape
+    (B, h, T, T) in q's dtype (traced, through the operator
+    ``zipvoice::rel_pos_attention_weights``).  CUDA tensors (f32 or bf16,
+    contiguous) run the hand-written kernel (bf16 on the tensor cores); CPU
+    tensors run the plain version."""
+    if not untraced(q):
+        return _weights_op(q, k, p, pe, key_padding_mask)
+    if q.device.type == "cpu":
+        return rel_pos_attention_weights_ref(q, k, p, pe, key_padding_mask)
+    return _weights_cuda(q, k, p, pe, key_padding_mask)
 
 
 rel_pos_attention_weights.launches = 0
@@ -343,15 +376,10 @@ def rel_pos_attention_weights_train(q, k, p, pe, key_padding_mask):
 rel_pos_attention_weights_train.launches = 0
 
 
-def rel_pos_attention_weights_nonlin(q, k, p, pe, key_padding_mask, nv):
-    """The weights (B, h, T, T) as ``rel_pos_attention_weights`` gives
-    them, and na = weights[:, 0] @ nv (B, T, hid), both in q's dtype; nv is
-    NonlinAttention's gated values (B, T, hid) in q's dtype.  CUDA tensors
-    run the kernel (``csrc/rel_pos_attention_nonlin.cu``), which computes
-    both in one pass; CPU tensors run the plain version."""
-    if q.device.type == "cpu":
-        return rel_pos_attention_weights_nonlin_ref(q, k, p, pe,
-                                                    key_padding_mask, nv)
+def _nonlin_cuda(q: torch.Tensor, k: torch.Tensor, p: torch.Tensor,
+                 pe: torch.Tensor, key_padding_mask: torch.Tensor,
+                 nv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: the hand-written kernel."""
     require_cuda(q)
     _check(q, k, p, pe, key_padding_mask, nv=nv)
     if p.data_ptr() % 8 or pe.data_ptr() % 8:
@@ -375,15 +403,38 @@ def rel_pos_attention_weights_nonlin(q, k, p, pe, key_padding_mask, nv):
     return out, na
 
 
+_nonlin_op = torch.library.custom_op(
+    "zipvoice::rel_pos_attention_weights_nonlin", _nonlin_cuda,
+    mutates_args=(), device_types="cuda")
+_nonlin_op.register_kernel("cpu")(rel_pos_attention_weights_nonlin_ref)
+
+
+@_nonlin_op.register_fake
+def _(q, k, p, pe, key_padding_mask, nv):
+    B, h, T, _ = q.shape
+    return q.new_empty((B, h, T, T)), q.new_empty((B, T, nv.shape[-1]))
+
+
+def rel_pos_attention_weights_nonlin(q, k, p, pe, key_padding_mask, nv):
+    """The weights (B, h, T, T) as ``rel_pos_attention_weights`` gives
+    them, and na = weights[:, 0] @ nv (B, T, hid), both in q's dtype; nv is
+    NonlinAttention's gated values (B, T, hid) in q's dtype (traced,
+    through the operator ``zipvoice::rel_pos_attention_weights_nonlin``).
+    CUDA tensors run the kernel (``csrc/rel_pos_attention_nonlin.cu``),
+    which computes both in one pass; CPU tensors run the plain version."""
+    if not untraced(q):
+        return _nonlin_op(q, k, p, pe, key_padding_mask, nv)
+    if q.device.type == "cpu":
+        return rel_pos_attention_weights_nonlin_ref(q, k, p, pe,
+                                                    key_padding_mask, nv)
+    return _nonlin_cuda(q, k, p, pe, key_padding_mask, nv)
+
+
 rel_pos_attention_weights_nonlin.launches = 0
 
 
-def attention_apply(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """w (B, h, T, T) @ v (B, h, T, vd), summed in f32, in v's dtype.
-    CUDA tensors (f32 or bf16, contiguous, one dtype, vd = 12) run the
-    kernel (``csrc/attention_apply.cu``); CPU tensors the plain version."""
-    if w.device.type == "cpu":
-        return attention_apply_ref(w, v)
+def _apply_cuda(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA implementation: the hand-written kernel."""
     require_cuda(w)
     if w.dim() != 4 or w.shape[-1] != w.shape[-2]:
         raise ValueError(f"w must be (B, h, T, T), got {tuple(w.shape)}")
@@ -414,6 +465,29 @@ def attention_apply(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     raise_on(err, "attention_apply")
     attention_apply.launches += 1
     return out
+
+
+_apply_op = torch.library.custom_op(
+    "zipvoice::attention_apply", _apply_cuda, mutates_args=(),
+    device_types="cuda")
+_apply_op.register_kernel("cpu")(attention_apply_ref)
+
+
+@_apply_op.register_fake
+def _(w, v):
+    return v.new_empty(v.shape)
+
+
+def attention_apply(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w (B, h, T, T) @ v (B, h, T, vd), summed in f32, in v's dtype
+    (traced, through the operator ``zipvoice::attention_apply``).  CUDA
+    tensors (f32 or bf16, contiguous, one dtype, vd = 12) run the kernel
+    (``csrc/attention_apply.cu``); CPU tensors the plain version."""
+    if not untraced(w):
+        return _apply_op(w, v)
+    if w.device.type == "cpu":
+        return attention_apply_ref(w, v)
+    return _apply_cuda(w, v)
 
 
 attention_apply.launches = 0

@@ -42,6 +42,80 @@ def _time_grid(t_start, t_end, num_step: int, t_shift: float, device):
     return s * ts / (1 + (s - 1) * ts)
 
 
+def _t_vec(value, n: int, device) -> torch.Tensor:
+    """A step's time (a number or a 0-dim tensor) as an f32 (n,) vector."""
+    if torch.is_tensor(value):
+        return value.reshape(1).expand(n)
+    return torch.full((n,), float(value), dtype=torch.float32, device=device)
+
+
+def cfg_inputs(text_condition: torch.Tensor, padding_mask: torch.Tensor):
+    """The doubled batch's text condition (unconditional half zeroed) and
+    padding mask that every CFG step of ``euler_step`` feeds the network."""
+    return (torch.cat([torch.zeros_like(text_condition), text_condition],
+                      dim=0),
+            torch.cat([padding_mask, padding_mask], dim=0))
+
+
+def euler_step(
+    velocity_fn: VelocityFn,
+    x: torch.Tensor,
+    t,
+    t_next,
+    text_condition: torch.Tensor,
+    speech_condition: torch.Tensor,
+    padding_mask: torch.Tensor,
+    guidance_scale: Union[float, torch.Tensor] = 0.0,
+    distill: bool = False,
+    cfg=None,
+) -> torch.Tensor:
+    """One step of ``euler_sample``: x (f32) at ``t_next`` from x at ``t``.
+    ``t`` and ``t_next`` are numbers, or f32 0-dim tensors on the device
+    (distillation's drawn bounds, an exported step program's inputs), and
+    then the CFG rule's branch is a select.  ``cfg`` is ``cfg_inputs``'s
+    pair when the caller made it once for every step."""
+    B = x.shape[0]
+    if distill:
+        if torch.is_tensor(guidance_scale):
+            gs_b = guidance_scale.float().reshape(-1).expand(B)
+        else:
+            gs_b = _t_vec(guidance_scale, B, x.device)
+        v = velocity_fn(_t_vec(t, B, x.device), x, text_condition,
+                        speech_condition, padding_mask, gs_b)
+        return x + v.float() * (t_next - t)
+
+    if not torch.is_tensor(guidance_scale) and guidance_scale == 0.0:
+        v = velocity_fn(_t_vec(t, B, x.device), x, text_condition,
+                        speech_condition, padding_mask, None)
+        return x + v.float() * (t_next - t)
+
+    if torch.is_tensor(guidance_scale):
+        gs = guidance_scale.float()
+        if gs.dim() > 0:
+            gs = gs.reshape(-1, 1, 1)
+    else:
+        gs = float(guidance_scale)
+    tc2, pm2 = cfg if cfg is not None else cfg_inputs(text_condition,
+                                                      padding_mask)
+    if torch.is_tensor(t):
+        # a time on the device: the rule's branch as a select, so the
+        # host never waits for it
+        late = t > 0.5
+        uncond_speech = torch.where(late, 0.0, speech_condition)
+        gs_eff = torch.where(late, gs, gs * 2.0)
+    elif t > 0.5:
+        uncond_speech, gs_eff = torch.zeros_like(speech_condition), gs
+    else:
+        uncond_speech, gs_eff = speech_condition, gs * 2.0
+    v2 = velocity_fn(
+        _t_vec(t, 2 * B, x.device), torch.cat([x, x], dim=0), tc2,
+        torch.cat([uncond_speech, speech_condition], dim=0), pm2, None,
+    ).float()
+    v_uncond, v_cond = v2.chunk(2, dim=0)
+    v = (1.0 + gs_eff) * v_cond - gs_eff * v_uncond
+    return x + v * (t_next - t)
+
+
 def euler_sample(
     velocity_fn: VelocityFn,
     x: torch.Tensor,
@@ -57,7 +131,7 @@ def euler_sample(
 ) -> torch.Tensor:
     """Integrate the probability-flow ODE from ``t_start`` to ``t_end``
     (0 to 1 in inference; bounds drawn on the device, as tensors, in
-    distillation training).
+    distillation training), one ``euler_step`` a grid interval.
 
     - distill=True: the guidance scale is a network input, no doubling.
     - guidance_scale == 0 (a Python number): plain conditional steps.
@@ -66,58 +140,14 @@ def euler_sample(
       t <= 0.5 it keeps it and the scale doubles.  A tensor scale (B, 1, 1)
       always takes this path, as in JAX.
     """
-    B = x.shape[0]
     ts = _time_grid(t_start, t_end, num_step, t_shift, x.device)
     x = x.float()
-
-    def t_vec(value, n):
-        if torch.is_tensor(value):
-            return value.reshape(1).expand(n)
-        return torch.full((n,), float(value), dtype=torch.float32,
-                          device=x.device)
-
-    if distill:
-        if torch.is_tensor(guidance_scale):
-            gs_b = guidance_scale.float().reshape(-1).expand(B)
-        else:
-            gs_b = t_vec(guidance_scale, B)
-        for t, t_next in zip(ts[:-1], ts[1:]):
-            v = velocity_fn(t_vec(t, B), x, text_condition, speech_condition,
-                            padding_mask, gs_b)
-            x = x + v.float() * (t_next - t)
-        return x
-
-    if not torch.is_tensor(guidance_scale) and guidance_scale == 0.0:
-        for t, t_next in zip(ts[:-1], ts[1:]):
-            v = velocity_fn(t_vec(t, B), x, text_condition, speech_condition,
-                            padding_mask, None)
-            x = x + v.float() * (t_next - t)
-        return x
-
-    if torch.is_tensor(guidance_scale):
-        gs = guidance_scale.float()
-        if gs.dim() > 0:
-            gs = gs.reshape(-1, 1, 1)
-    else:
-        gs = float(guidance_scale)
-    pm2 = torch.cat([padding_mask, padding_mask], dim=0)
-    tc2 = torch.cat([torch.zeros_like(text_condition), text_condition], dim=0)
+    cfg = None
+    if not distill and (torch.is_tensor(guidance_scale)
+                        or guidance_scale != 0.0):
+        cfg = cfg_inputs(text_condition, padding_mask)
     for t, t_next in zip(ts[:-1], ts[1:]):
-        if torch.is_tensor(t):
-            # a time on the device: the rule's branch as a select, so the
-            # host never waits for it
-            late = t > 0.5
-            uncond_speech = torch.where(late, 0.0, speech_condition)
-            gs_eff = torch.where(late, gs, gs * 2.0)
-        elif t > 0.5:
-            uncond_speech, gs_eff = torch.zeros_like(speech_condition), gs
-        else:
-            uncond_speech, gs_eff = speech_condition, gs * 2.0
-        v2 = velocity_fn(
-            t_vec(t, 2 * B), torch.cat([x, x], dim=0), tc2,
-            torch.cat([uncond_speech, speech_condition], dim=0), pm2, None,
-        ).float()
-        v_uncond, v_cond = v2.chunk(2, dim=0)
-        v = (1.0 + gs_eff) * v_cond - gs_eff * v_uncond
-        x = x + v * (t_next - t)
+        x = euler_step(velocity_fn, x, t, t_next, text_condition,
+                       speech_condition, padding_mask, guidance_scale,
+                       distill, cfg)
     return x

@@ -19,7 +19,7 @@ from zipvoice_torch.models.conditioning import (
     make_pad_mask,
     upsample_text_embed,
 )
-from zipvoice_torch.models.solver import euler_sample
+from zipvoice_torch.models.solver import euler_sample, euler_step
 from zipvoice_torch.models.zipformer import (
     TrainGenerators,
     TTSZipformer,
@@ -236,6 +236,23 @@ class ZipVoice(nn.Module):
 
         Returns (x1, padding_mask); ``strip_prompt`` cuts the prompt off.
         """
+        text_condition, speech_condition, padding_mask = (
+            self.sample_condition(tokens, tokens_lens, prompt_features,
+                                  prompt_features_lens, features_lens))
+        x1 = euler_sample(
+            self.forward_fm_decoder, x=noise, text_condition=text_condition,
+            speech_condition=speech_condition, padding_mask=padding_mask,
+            num_step=num_step, guidance_scale=guidance_scale,
+            t_shift=t_shift, distill=self.use_guidance_scale_embed,
+        )
+        return x1, padding_mask
+
+    def sample_condition(self, tokens, tokens_lens, prompt_features,
+                         prompt_features_lens, features_lens):
+        """``sample``'s conditions, (text_condition (B, T, F), speech
+        condition (B, T, F), padding mask (B, T)): the text encoder's
+        output upsampled to T frames, and the prompt's features with the
+        frames past its length zeroed."""
         T = prompt_features.shape[1]
         embed = self.forward_text_embed(tokens, tokens_lens)
         text_condition, padding_mask = upsample_text_embed(
@@ -245,14 +262,17 @@ class ZipVoice(nn.Module):
         speech_condition = prompt_features.masked_fill(
             prompt_mask[:, :, None], 0.0
         )
+        return text_condition, speech_condition, padding_mask
 
-        x1 = euler_sample(
-            self.forward_fm_decoder, x=noise, text_condition=text_condition,
-            speech_condition=speech_condition, padding_mask=padding_mask,
-            num_step=num_step, guidance_scale=guidance_scale,
-            t_shift=t_shift, distill=self.use_guidance_scale_embed,
+    def sample_step(self, x, t, t_next, text_condition, speech_condition,
+                    padding_mask, guidance_scale: float = 1.0):
+        """One of ``sample``'s Euler steps, x (f32) from ``t`` to
+        ``t_next`` (f32 0-dim tensors, or numbers)."""
+        return euler_step(
+            self.forward_fm_decoder, x.float(), t, t_next, text_condition,
+            speech_condition, padding_mask, guidance_scale,
+            distill=self.use_guidance_scale_embed,
         )
-        return x1, padding_mask
 
     def sample_intermediate(
         self,

@@ -15,10 +15,21 @@ cache (counterpart of ``zipvoice_tpu/serving/server.py``).
   python -m zipvoice_torch.serving.server --model-dir DIR --port 8000 \\
       --warmup-buckets 8:192:1280
 
+or from exported engines (``bin/export_model``; the server's defaults are 4
+steps at guidance 3.0 in bf16), each bucket captured as a CUDA graph at
+warm-up and replayed for every batch of its shape:
+
+  python -m zipvoice_torch.bin.export_model --model-dir DIR --out-dir eng \\
+      --model-name zipvoice_distill --bf16 --num-step 4 \\
+      --guidance-scale 3.0 --buckets 1:256:1280,1:256:1024
+  python -m zipvoice_torch.serving.server --model-dir DIR --engine-dir eng \\
+      --warmup
+
 POST /tts        {"text": ..., "prompt_text": ..., "prompt_wav_b64": ...}
 POST /tts        {"text": ..., "speaker": "cached_name"}
 POST /speaker    {"name": ..., "prompt_text": ..., "prompt_wav_b64": ...}
-GET  /health
+GET  /health      {"status": "ok"}, with --engine-dir also the samples
+                 the engines served ("engine_hits") and missed
 
 OpenAI-compatible:
 
@@ -382,7 +393,14 @@ def make_handler(engine: TTSEngine, model_name: str = "zipvoice"):
 
         def do_GET(self):
             if self.path == "/health":
-                self._json(200, {"status": "ok"})
+                health = {"status": "ok"}
+                pipe = engine.pipeline
+                if pipe._engines:
+                    # samples served by the exported engines, and those
+                    # whose bucket or settings they lack
+                    health.update(engine_hits=pipe.engine_hits,
+                                  engine_misses=pipe.engine_misses)
+                self._json(200, health)
             elif self.path == "/v1/models":
                 self._json(200, {
                     "object": "list",
@@ -516,6 +534,12 @@ def main(argv=None):
                         "one stack at a time during a sampling or vocoding "
                         "call; this halves the weight bytes held between "
                         "calls")
+    p.add_argument("--engine-dir", type=str, default=None,
+                   help="serve from exported engines (bin/export_model): "
+                        "their buckets replay as CUDA graphs on the card, "
+                        "other buckets run the model; with --warmup the "
+                        "engine buckets are warmed (and captured) first, "
+                        "then the --warmup or --warmup-buckets set")
     p.add_argument("--platform", type=str, default="cuda",
                    choices=("cuda", "cpu"),
                    help="torch device; without CUDA the server fails "
@@ -537,6 +561,18 @@ def main(argv=None):
                          device=device)
     pipeline = InferencePipeline(model, vocoder, device=device,
                                  tokenizer=tokenizer, quantize=args.quantize)
+    if args.engine_dir:
+        pipeline.attach_engines(args.engine_dir)
+    engine_buckets = sorted(pipeline._engines or ())
+    if engine_buckets:
+        m = pipeline._engine_manifest
+        if (m["num_step"], m["guidance_scale"], m["t_shift"]) != (
+                args.num_step, args.guidance_scale, 0.5):
+            logging.warning(
+                f"the engines sample at num_step {m['num_step']}, guidance "
+                f"{m['guidance_scale']}, t_shift {m['t_shift']}; this server "
+                f"at {args.num_step}, {args.guidance_scale}, 0.5: every "
+                "request misses them")
     engine = TTSEngine(
         pipeline, max_batch=args.max_batch, num_step=args.num_step,
         guidance_scale=args.guidance_scale,
@@ -550,6 +586,11 @@ def main(argv=None):
                    for s, t in ((64, 512), (64, 768), (128, 1024))]
     else:
         buckets = []
+    if buckets and engine_buckets:
+        # warming an engine bucket captures it; the other buckets still
+        # run the model, and warming them costs seconds, not a compile
+        buckets = engine_buckets + [b for b in buckets
+                                    if b not in engine_buckets]
     for B, S, T in buckets:
         engine.warm(B, S, T)
     if buckets:
