@@ -151,7 +151,22 @@ are built for sm_90a).  Phases, each of which must pass:
    (every request an engine hit, from ``/health``'s counts) and 8, its
    P50, audio-s/s and sample ms printed beside phase 13's eager server.
    Each engine's export, load and capture seconds, file bytes, graph pool
-   bytes and graph nodes are printed.
+   bytes and graph nodes are printed;
+16. multi-process training (``parallel/mesh.py``): (a) 20 synthetic
+   utterances with Spanish texts through ``bin/prepare_dataset``,
+   ``bin/compute_fbank``, ``bin/prepare_tokens --tokenizer espeak --lang
+   es`` and ``bin/build_tokens`` (the texts' token counts printed for the
+   eight first-party voices), then ``bin/train_zipvoice --tokenizer espeak
+   --lang es`` as a subprocess on a one-process NCCL group
+   (``--coordinator-address``, ``--num-processes 1``, ``--process-id 0``,
+   ``--per-host-data on``) at the base's published widths: one epoch of two
+   steps at (8, 96, 1280), finite losses, process 0's epoch-1 written, #4
+   and #5 at the gates' count (12 + 12 a step), its step wall printed
+   beside phase 14's without a group; (b) two processes on the one card
+   over gloo (NCCL takes one process a device), f32 (TF32 off) at full
+   width, B=8 split 4 + 4, two steps, against one process at B=8: losses
+   within 1e-5 relative, every parameter within atol 1e-5, rtol 1e-4, both
+   processes' parameters equal bit for bit; the largest |d| printed.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -2307,7 +2322,8 @@ def phase_train_cli(card, seed):
               f"{np.median([h['frames'] / h['wall'] for h in steady]):.0f} "
               f"[{card}]", flush=True)
         out = {"train": {k: l1[k] + l2[k] for k in l1},
-               "distill": {k: ld1[k] + ld2[k] for k in ld1}}
+               "distill": {k: ld1[k] + ld2[k] for k in ld1},
+               "step_wall": float(np.median(walls))}
     finally:
         shutil.rmtree(tmp)
         gc.collect()
@@ -2315,6 +2331,240 @@ def phase_train_cli(card, seed):
     print(f"train CLI phase: {time.perf_counter() - start:.1f} s wall "
           f"[{card}]", flush=True)
     return out
+
+
+# phase 16: multi-process training.  Spanish texts of 78-87 phonemes under
+# the es G2P (S=96) for phase 14's synthetic utterances
+ES_TEXTS = (
+    "El viento del norte sopla con fuerza sobre las montañas y los valles.",
+    "Mi abuela cocinaba una sopa de verduras todos los domingos por la "
+    "tarde.",
+    "Los niños juegan en el parque mientras sus padres conversan en un "
+    "banco.",
+    "La biblioteca de la ciudad abre sus puertas a las nueve de la mañana.",
+    "Durante el verano viajamos a la costa para descansar junto al mar azul.",
+    "El tren salió de la estación con veinte minutos de retraso esta noche.",
+    "Ella escribe cartas a sus amigos que viven en otros países del mundo.",
+    "Necesitamos comprar pan, leche y fruta fresca antes de volver a casa.",
+    "El profesor explicó la lección con paciencia hasta que todos la "
+    "entendieron.",
+    "En otoño las hojas de los árboles cambian de color y caen al suelo.",
+    "Mañana vamos a visitar el museo de arte moderno con toda la familia.",
+    "La música de la orquesta llenó el teatro de una alegría muy especial.",
+    "Después de la lluvia el cielo se despejó y apareció un arcoíris enorme.",
+    "Mi hermano trabaja en un hospital y cuida a los enfermos cada noche.",
+    "Los pescadores regresaron al puerto con las redes llenas de sardinas.",
+    "El jardín de mi vecina tiene rosas rojas, lirios blancos y girasoles.",
+    "Cada mañana camino por la playa y escucho el sonido tranquilo de las "
+    "olas.",
+    "La reunión empezó tarde porque el director no encontraba sus papeles.",
+    "Aprender un idioma nuevo requiere práctica, tiempo y mucha curiosidad.",
+    "Al final del camino encontramos una pequeña casa con un techo de tejas.",
+)
+FIRST_PARTY_VOICES = ("es", "de", "it", "ru", "nl", "pl", "pt", "fr")
+MULTI_TIMEOUT = 600
+
+# a subprocess: the trainer's entry point with every launch count at 0
+# just before it; prints the history and the launches as its last line
+TRAIN_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from zipvoice_torch.bin import train_zipvoice
+chip_smoke.reset_launches()
+history = train_zipvoice.main(sys.argv[2:])
+print(json.dumps({"history": history,
+                  "launches": chip_smoke.launch_counts()}))
+"""
+
+# a subprocess: process RANK of two on the card over gloo, two f32 steps of
+# the full-width workload on its rows of the B=8 batch; saves its losses
+# and parameters
+PAIR_SCRIPT = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from zipvoice_torch.parallel import mesh
+from zipvoice_torch.train.workload import build_trainer, train_batch
+rank, port, seed, out = (int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+                         sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, "cuda", backend="gloo")
+model, _, step = build_trainer(seed, torch.float32)
+rows = mesh.local_batch_rows(rank, 2, 8)
+batch = {k: v[rows[0]: rows[-1] + 1] for k, v in train_batch(seed).items()}
+losses = [float(step(batch)["loss"]) for _ in range(2)]
+torch.save({"losses": losses, "params": {
+    k: v.cpu() for k, v in model.state_dict().items()}}, out)
+mesh.destroy()
+"""
+
+
+def run_subprocess(what, argv, timeout=MULTI_TIMEOUT):
+    """Run ``argv`` from the checkout's root; its stdout, or raise with its
+    tail."""
+    import subprocess
+
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return proc.stdout
+
+
+def phase_multiprocess(card, seed, phase14_step_wall):
+    """Multi-process training: the trainer CLI on a one-process NCCL group
+    with the Spanish voice, then two processes over gloo on the one card
+    against one process.  Returns #4's and #5's launches in the CLI run."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from zipvoice_torch.bin import compute_fbank, prepare_dataset
+    from zipvoice_torch.bin import build_tokens, prepare_tokens
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.frontend.tokenizer import EspeakTokenizer
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.train.workload import build_trainer, train_batch
+
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zipvoice_multi_")
+    try:
+        # (a) the Spanish corpus and the CLI on a one-process NCCL group
+        counts = {v: sum(map(len, EspeakTokenizer(lang=v).texts_to_tokens(
+            list(ES_TEXTS)))) for v in FIRST_PARTY_VOICES}
+        print(f"multi-process: the {len(ES_TEXTS)} Spanish texts' tokens "
+              f"under the eight first-party voices {counts}", flush=True)
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a voice gave no tokens: {counts}")
+        seconds = np.linspace(*TRAIN_CLI_SECONDS, TRAIN_CLI_UTTS)
+        rows = []
+        for i, (text, sec) in enumerate(zip(ES_TEXTS, seconds)):
+            wav = os.path.join(tmp, f"es{i:02d}.wav")
+            save_wav(wav, speech_like_wav(seed + 100 + i, seconds=float(sec)),
+                     24000)
+            rows.append(f"es{i:02d}\t{text}\t{wav}")
+        tsv = os.path.join(tmp, "train.tsv")
+        with open(tsv, "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+        manifest = prepare_dataset.main([
+            "--tsv-path", tsv, "--prefix", "es", "--output-dir",
+            os.path.join(tmp, "manifests")])
+        compute_fbank.main(["--manifest", manifest, "--output-dir",
+                            os.path.join(tmp, "fbank")])
+        prepare_tokens.main(["--manifest", manifest, "--tokenizer", "espeak",
+                             "--lang", "es"])
+        tokens = os.path.join(tmp, "tokens.txt")
+        build_tokens.main(["--manifest", manifest, "--output", tokens])
+        exp = os.path.join(tmp, "exp")
+        argv = ["--train-manifest", manifest, "--token-file", tokens,
+                "--tokenizer", "espeak", "--lang", "es", "--exp-dir", exp,
+                "--max-duration", "110", "--num-buckets", "2",
+                "--num-epochs", "1", "--log-interval", "1",
+                "--average-period", "1", "--save-every-n", "0",
+                "--seed", str(seed),
+                "--coordinator-address", f"127.0.0.1:{free_port()}",
+                "--num-processes", "1", "--process-id", "0",
+                "--per-host-data", "on"]
+        t = time.perf_counter()
+        out = run_subprocess("train_zipvoice on an NCCL group", [
+            sys.executable, "-c", TRAIN_SCRIPT, REPO, *argv])
+        cli_s = time.perf_counter() - t
+        result = json.loads(out.strip().splitlines()[-1])
+        history, launched = result["history"], result["launches"]
+        for h in history:
+            h["shape"] = tuple(h["shape"])
+        print_steps(card, "train (NCCL group of one, es)", history)
+        want = dict.fromkeys(launched, 0)
+        for h in history:
+            n = gate_layers(BASE_CONFIG, *h["shape"][1:])
+            want["rel_pos_attention_weights_train"] += n
+            want["rel_pos_attention_weights_bwd"] += n
+        print(f"train_zipvoice --tokenizer espeak --lang es on a one-process "
+              f"NCCL group, as a subprocess: {len(history)} steps at "
+              f"{sorted({h['shape'] for h in history})} in {cli_s:.1f} s; "
+              f"launches { {k: v for k, v in launched.items() if v} } (the "
+              f"gates predict { {k: v for k, v in want.items() if v} }); "
+              f"step {history[-1]['step']} wall {history[-1]['wall']:.4f} s "
+              f"against phase 14's {phase14_step_wall:.4f} s without a "
+              f"group [{card}]", flush=True)
+        if launched != want or len(history) != 2 or any(
+                h["shape"] != (8, 96, 1280) for h in history):
+            raise AssertionError(f"NCCL CLI run: {launched} vs {want}, "
+                                 f"{[h['shape'] for h in history]}")
+        for name in ("epoch-1", "epoch-1-avg", "model.json", "tokens.txt"):
+            if not os.path.exists(os.path.join(exp, name)):
+                raise AssertionError(f"process 0 did not write {name}")
+        shutil.rmtree(exp)
+
+        # (b) two processes on the card over gloo against one process
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", PAIR_SCRIPT, REPO, str(r), str(port),
+             str(seed), outs[r]], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                model, _, step = build_trainer(seed, torch.float32)
+                batch = train_batch(seed)
+                solo_losses = [float(step(batch)["loss"]) for _ in range(2)]
+                solo = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()}
+                del model, step, batch
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = tf32
+            for p in procs:
+                o, e = p.communicate(timeout=MULTI_TIMEOUT)
+                if p.returncode != 0:
+                    raise AssertionError(f"gloo rank: exit {p.returncode}\n"
+                                         f"{o[-2000:]}\n{e[-6000:]}")
+        finally:
+            for p in procs:
+                p.kill()
+        pair_s = time.perf_counter() - t
+        ranks = [torch.load(o) for o in outs]
+        worst_d, worst_ratio, worst_k = 0.0, 0.0, None
+        for k, want_p in solo.items():
+            got = ranks[0]["params"][k]
+            if not torch.equal(got, ranks[1]["params"][k]):
+                raise AssertionError(f"the two processes differ at {k}")
+            d = (got.double() - want_p.double()).abs()
+            ratio = float((d / (1e-5 + 1e-4 * want_p.double().abs())).max())
+            worst_d = max(worst_d, float(d.max()))
+            if ratio > worst_ratio:
+                worst_ratio, worst_k = ratio, k
+        loss_d = max(abs(a - b) / abs(b)
+                     for a, b in zip(ranks[0]["losses"], solo_losses))
+        print(f"two processes on one card over gloo (f32, B=8 as 4 + 4, "
+              f"two steps) against one process at B=8: losses "
+              f"{ranks[0]['losses']} against {solo_losses} (largest "
+              f"relative |d| {loss_d:.3e}), parameters' largest |d| "
+              f"{worst_d:.3e}, at most {worst_ratio:.3f} of atol 1e-5 + "
+              f"rtol 1e-4 ({worst_k}); the processes' parameters equal bit "
+              f"for bit; {pair_s:.1f} s (NCCL takes one process a device, "
+              f"so two processes share the card over gloo) [{card}]",
+              flush=True)
+        if loss_d > 1e-5 or worst_ratio > 1.0:
+            raise AssertionError("two processes do not match one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"multi-process phase: {time.perf_counter() - start:.1f} s wall "
+          f"[{card}]", flush=True)
+    return {k: v for k, v in launched.items()}
 
 
 # phase 15: the exported engines.  The base at phase 11's bucket (its
@@ -2842,6 +3092,8 @@ def main(argv=None) -> int:
     serving_launches, eager_sweep = phase_serving(card, args.seed)
     train_cli = phase_train_cli(card, args.seed)
     engine_launches = phase_engines(card, args.seed, eager_sweep)
+    multi_launches = phase_multiprocess(card, args.seed,
+                                        train_cli["step_wall"])
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -2920,7 +3172,11 @@ def main(argv=None) -> int:
     for k in kernels:
         if engine_launches["config"][k["name"]]:
             k["launches_engine_path"] = engine_launches["config"][k["name"]]
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - start:.1f} s",
+    # and #4 and #5 in phase 16's trainer run on a process group
+    for k in kernels:
+        if multi_launches[k["name"]]:
+            k["launches_multiprocess_path"] = multi_launches[k["name"]]
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

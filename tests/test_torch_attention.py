@@ -13,7 +13,12 @@ import conftest  # noqa: F401
 import jax.numpy as jnp
 import torch
 
-from torch_parity import assert_params_like_init, jax_jit, jax_pos_encoding
+from torch_parity import (  # noqa: F401
+    assert_params_like_init,
+    jax_jit,
+    jax_pos_encoding,
+    one_torch_thread,
+)
 from zipvoice_torch.kernels.rel_pos_attention import (
     rel_pos_attention_weights_ref,
 )
@@ -24,6 +29,8 @@ from zipvoice_torch.models.zipformer import (
     set_compute_dtype,
 )
 from zipvoice_torch.utils.convert import to_flax, zipformer_state_dict
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _inputs(T, B=3, h=4, qd=8, pd=4, seed=0):

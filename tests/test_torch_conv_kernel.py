@@ -14,7 +14,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import assert_params_like_init, jax_jit
+from torch_parity import (  # noqa: F401
+    assert_params_like_init,
+    jax_jit,
+    one_torch_thread,
+)
 from zipvoice_torch.kernels.depthwise_conv import (
     depthwise_conv1d,
     depthwise_conv1d_ref,
@@ -22,6 +26,8 @@ from zipvoice_torch.kernels.depthwise_conv import (
 )
 from zipvoice_torch.models.zipformer import ConvolutionModule, set_conv_kernel
 from zipvoice_torch.utils.convert import zipformer_state_dict
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _inputs(k, B=2, T=40, C=24, seed=0):

@@ -16,6 +16,7 @@ import pytest
 
 import conftest  # noqa: F401
 
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.data import featio
 from zipvoice_torch.data import sampler as port_sampler
 from zipvoice_torch.data.manifest import (
@@ -31,6 +32,8 @@ from zipvoice_torch.data.sampler import (
     SimpleCutSampler,
     StreamingBucketingSampler,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # --- the .fz codec (test_featio.py) -----------------------------------------
 

@@ -18,11 +18,20 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import DS, TINY, jax_jit, to_jax, to_torch
+from torch_parity import (  # noqa: F401
+    DS,
+    TINY,
+    jax_jit,
+    one_torch_thread,
+    to_jax,
+    to_torch,
+)
 from zipvoice_torch.models.conditioning import condition_time_mask
 from zipvoice_torch.models.dialog import ZipVoiceDialog, ZipVoiceDialogStereo
 from zipvoice_torch.models.zipvoice import build_zipvoice
 from zipvoice_torch.utils.convert import state_dict_from_jax_params
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SPK = dict(spk_a_id=28, spk_b_id=29)
 # one fm_decoder layer, not TINY's five stacks: the JAX side's traces of

@@ -19,7 +19,7 @@ import conftest  # noqa: F401
 import torch
 
 from test_torch_infer_cli import WAV_ATOL, _read_wav, _recording
-from torch_parity import DS, fast_pipeline
+from torch_parity import DS, fast_pipeline, one_torch_thread  # noqa: F401
 from zipvoice_torch.bin.make_model_dir import (
     TINY_CONFIG,
     TINY_VOCOS,
@@ -33,6 +33,8 @@ from zipvoice_torch.infer.dialog_pipeline import (
 from zipvoice_torch.infer.workload import speech_like_wav
 from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
 from zipvoice_torch.utils.convert import state_dict_from_jax_params
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("zipvoice_dialog", "zipvoice_dialog_stereo")

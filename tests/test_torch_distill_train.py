@@ -36,11 +36,19 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from test_torch_train import one_thread, pinned  # noqa: F401
-from torch_parity import TINY, jax_compile_all, model_pair, to_jax
+from test_torch_train import pinned  # noqa: F401
+from torch_parity import (  # noqa: F401
+    TINY,
+    jax_compile_all,
+    model_pair,
+    one_torch_thread,
+    to_jax,
+)
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.ops.schedule import adjusted_batch_count
 from zipvoice_torch.train.distill import distill_losses, ema_update
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CONFIG = dict(TINY, fm_decoder_downsampling_factor=(1,),
               fm_decoder_num_layers=(1,), fm_decoder_cnn_module_kernel=(7,))
@@ -235,7 +243,6 @@ def _port_models(stage):
     return student, teacher, solves
 
 
-@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("key", KEYS)
 @pytest.mark.parametrize("stage", STAGES)
 def test_distill_losses_match_jax(pinned, jax_side, stage, key):

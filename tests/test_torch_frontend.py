@@ -10,8 +10,11 @@ import pytest
 
 import conftest  # noqa: F401
 
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.bin.make_model_dir import emilia_tokens
 from zipvoice_torch.infer.workload import speech_like_wav
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "reference_tokens.json")
@@ -211,16 +214,113 @@ def test_fbank_matches_jax():
     assert worst <= 1.0, worst
 
 
-@pytest.mark.parametrize("voice", ["es", "de", "it", "ru", "nl", "pl",
-                                   "pt-br", "fr-fr"])
-def test_unported_languages_raise(voice):
-    """The eight first-party languages not carried over raise, and never
-    fall to CharG2P, whose ids would differ from the JAX package's."""
-    from zipvoice_torch.frontend.g2p import CharG2P, get_g2p
+# the words and sentences that tests/test_g2p_multilang.py pins, by
+# language: (the voices it runs them in, the strings)
+G2P_PINS = {
+    "es": (("es", "es-419"), (
+        "hola", "gracias", "zapato", "llamar", "perro", "pero", "agua",
+        "vivir", "canción", "día", "muy", "general", "chico", "mañana",
+        "examen", "querer", "guerra", "casa", "comen", "hablar", "ciudad",
+        "¿Cómo estás? Bien, gracias.", "Hola, buenos días.")),
+    "de": (("de",), (
+        "hallo", "ich", "buch", "bücher", "zeit", "haus", "heute", "schön",
+        "sprechen", "wasser", "zwanzig", "gemacht", "verstehen", "straße",
+        "sonne", "jahr", "deutschland", "Guten Morgen, wie geht es dir?")),
+    "it": (("it",), (
+        "ciao", "chiesa", "gnocchi", "famiglia", "pizza", "scienza",
+        "scuola", "città", "gelato", "quando", "oggi", "bello", "zero",
+        "casa", "Buongiorno, come stai?")),
+    "ru": (("ru",), (
+        "привет", "спасибо", "хорошо", "молоко", "здравствуйте", "сегодня",
+        "его", "ничего", "красивого", "она", "идёт", "жизнь", "счастье",
+        "солнце", "друг", "любовь", "россия", "тебя",
+        "Доброе утро! Как дела?", "Спасибо большое, до свидания.")),
+    "nl": (("nl",), (
+        "water", "huis", "ijs", "school", "goedemorgen", "leven", "vrouw",
+        "nieuw", "mooi", "begrijpen", "verstaan", "gezellig", "tijd",
+        "mensen", "de", "een", "Goedemorgen! Hoe gaat het?",
+        "Dank je wel, tot ziens.")),
+    "pl": (("pl",), (
+        "dziękuję", "proszę", "cześć", "człowiek", "miasto", "książka",
+        "wszystko", "świat", "rząd", "łódź", "szkoła", "dobrze", "jestem",
+        "również", "dziecko", "Dzień dobry! Jak się masz?",
+        "Dziękuję bardzo, do widzenia.")),
+    "pt": (("pt", "pt-br"), (
+        "olá", "obrigado", "português", "não", "coração", "gente",
+        "trabalho", "chamar", "casa", "quando", "muito", "manhã", "Brasil",
+        "vez", "queijo", "dia", "papel", "feliz", "amigos", "cidade",
+        "Bom dia! Tudo bem?", "Bom dia, tudo bem?",
+        "Muito obrigado, até amanhã!")),
+    "fr": (("fr", "fr-fr"), (
+        "bonjour", "maison", "fille", "nuit", "beaucoup", "chanter",
+        "garçon", "jardin", "blanc", "mer", "grand", "trois", "moins",
+        "petit", "belle", "les", "est", "temps",
+        "Bonjour, comment allez-vous?")),
+}
+
+
+@pytest.mark.parametrize("language", sorted(G2P_PINS))
+def test_first_party_g2p_matches_jax(language):
+    """Each of the eight first-party G2Ps (without libespeak-ng): the
+    port's phonemes equal the JAX package's on every pinned word and
+    sentence, in each voice the JAX suite runs, and ``get_g2p`` picks the
+    language's class."""
+    import importlib
+
+    from zipvoice_torch.frontend import g2p
+
+    from zipvoice_tpu.frontend import g2p as jax_g2p
+
+    voices, strings = G2P_PINS[language]
+    module = f"frontend.{language}_g2p"
+    for voice in voices:
+        got_backend = g2p.get_g2p(voice)
+        want_backend = jax_g2p.get_g2p(voice)
+        cls = type(want_backend).__name__
+        assert type(got_backend).__name__ == cls != "CharG2P"
+        assert isinstance(got_backend, getattr(importlib.import_module(
+            f"zipvoice_torch.{module}"), cls))
+        for s in strings:
+            assert got_backend.phonemize(s) == want_backend.phonemize(s), (
+                voice, s)
+            if s.isalpha():
+                assert got_backend.word_to_ipa(s) == \
+                    want_backend.word_to_ipa(s), (voice, s)
+    assert isinstance(g2p.get_g2p("sw"), g2p.CharG2P)
+
+
+def test_espeak_tokenizer_nine_voices_match_jax(tmp_path):
+    """EspeakTokenizer through one token file for the nine voices of
+    tests/test_g2p_multilang.py's end-to-end case: the port's ids equal the
+    JAX package's."""
     from zipvoice_torch.frontend.tokenizer import EspeakTokenizer
 
-    with pytest.raises(NotImplementedError, match="A3b"):
-        get_g2p(voice)
-    with pytest.raises(NotImplementedError):
-        EspeakTokenizer(lang=voice).texts_to_tokens(["hola"])
-    assert isinstance(get_g2p("sw"), CharG2P)
+    from zipvoice_tpu.frontend.g2p import phonemize_espeak
+    from zipvoice_tpu.frontend.tokenizer import (
+        EspeakTokenizer as JaxEspeakTokenizer,
+    )
+
+    texts = {
+        "es": "Hola, buenos días.",
+        "de": "Guten Morgen, wie geht es dir?",
+        "it": "Buongiorno, come stai?",
+        "fr": "Bonjour, comment allez-vous?",
+        "pt": "Bom dia, tudo bem?",
+        "pt-br": "Muito obrigado, até amanhã!",
+        "pl": "Dziękuję bardzo, do widzenia.",
+        "nl": "Dank je wel, tot ziens.",
+        "ru": "Спасибо большое, до свидания.",
+    }
+    phones = set()
+    for voice, text in texts.items():
+        for clause in phonemize_espeak(text, voice):
+            phones.update(clause)
+    chars = ["_"] + sorted(phones)
+    tf = tmp_path / "tokens.txt"
+    tf.write_text("".join(f"{c}\t{i}\n" for i, c in enumerate(chars)))
+    for voice, text in texts.items():
+        got = EspeakTokenizer(token_file=str(tf), lang=voice)
+        want = JaxEspeakTokenizer(token_file=str(tf), lang=voice)
+        ids = got.texts_to_token_ids([text])[0]
+        assert ids == want.texts_to_token_ids([text])[0], voice
+        assert len(ids) > 10 and chars.index("ˈ") in ids, voice

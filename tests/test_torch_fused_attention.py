@@ -11,6 +11,7 @@ their plain versions in test_torch_gpu.py.
 """
 
 import numpy as np
+import pytest
 
 import conftest  # noqa: F401
 
@@ -18,11 +19,12 @@ import jax.numpy as jnp
 import torch
 
 import zipvoice_torch.models.zipformer as zipformer
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     assert_params_like_init,
     assert_sample_matches,
     jax_jit,
     jax_pos_encoding,
+    one_torch_thread,
 )
 from zipvoice_torch.kernels.rel_pos_attention import (
     attention_apply_ref,
@@ -34,6 +36,8 @@ from zipvoice_torch.models.zipformer import (
     set_kernel_config,
 )
 from zipvoice_torch.utils.convert import zipformer_state_dict
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _attention_inputs(T, B=3, h=4, qd=8, pd=4, hid=24, seed=0):

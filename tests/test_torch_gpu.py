@@ -1108,3 +1108,93 @@ def test_engine_batches_back_to_back_keep_their_own_results(
     assert not torch.equal(back_to_back[0][0], back_to_back[1][0])
     for (x, n), (wx, wn) in zip(back_to_back, one_at_a_time):
         assert torch.equal(x, wx) and torch.equal(n, wn)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_match_one_process(tmp_path):
+    """tests/test_torch_parallel.py's scenarios on cuda:0: two processes
+    over gloo (NCCL takes one process a device) at TINY widths, f32 without
+    TF32, against one process on the card, held as on the CPU
+    (``torch_parallel_worker.check_against_one_process``): the parameters
+    after 4 steps within atol 1e-5, rtol 1e-4, the losses within 1e-5
+    relative, the two processes' parameters equal bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    import torch_parallel_worker as worker
+
+    device = _cuda()
+    port = str(worker.free_ports(1)[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_parallel_worker.py"),
+         str(rank), "2", port, str(tmp_path / f"rank{rank}.npz"),
+         "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        solo = worker.run_scenarios(0, 1, device)
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            assert p.returncode == 0, f"STDOUT:{out}\nSTDERR:{err}"
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        for p in procs:
+            p.kill()
+    r0, r1 = (np.load(tmp_path / f"rank{r}.npz") for r in range(2))
+    for scenario in worker.SCENARIOS:
+        worker.check_against_one_process(solo, r0, r1, scenario)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_all_reduce_leaves_gradients_bit_equal():
+    """One process in an NCCL group: the step's gradient all-reduce does no
+    work (``reducing()`` is False), and the coalesced NCCL all-reduce that
+    it runs under more than one process, called directly, leaves the
+    gradients and the loss bit for bit as they were."""
+    from torch_parallel_worker import free_ports
+
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+    from zipvoice_torch.parallel import mesh
+    from zipvoice_torch.train.train_step import draw_inputs
+
+    _cuda()
+    device = mesh.init_distributed(f"127.0.0.1:{free_ports(1)[0]}", 1, 0,
+                                   "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        model = build_zipvoice(device=device, train=True, seed=3,
+                               vocab_size=30, **TRAIN_TINY_CFG)
+        B, T = 2, 24
+        rng = np.random.RandomState(0)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in dict(
+            tokens=rng.randint(1, 30, (B, 6)), tokens_lens=np.full((B,), 5),
+            features=rng.randn(B, T, TRAIN_TINY_CFG["feat_dim"]).astype(
+                np.float32),
+            features_lens=np.array([T, T - 4])).items()}
+        gens = TrainGenerators(1, device)
+        t, noise, span = draw_inputs(gens, batch)
+        loss = model(**batch, noise=noise, t=t, speech_condition_mask=span,
+                     gens=gens, train=True)
+        loss.backward()
+        loss = loss.detach()
+        before = [p.grad.clone() for p in model.parameters()
+                  if p.grad is not None] + [loss.clone()]
+        assert not mesh.reducing()
+        mesh.all_reduce_grads(model.parameters(), loss)
+        after = [p.grad for p in model.parameters()
+                 if p.grad is not None] + [loss]
+        for a, b in zip(after, before):
+            assert torch.equal(a, b)
+        mesh._coalesced(after, torch.distributed.all_reduce)
+        assert len(before) == len(after) > 1
+        for a, b in zip(after, before):
+            assert torch.equal(a, b)
+    finally:
+        mesh.destroy()

@@ -15,7 +15,7 @@ import conftest  # noqa: F401
 
 import torch
 
-from torch_parity import DS, fast_pipeline
+from torch_parity import DS, fast_pipeline, one_torch_thread  # noqa: F401
 from zipvoice_torch.bin.make_model_dir import (
     TINY_CONFIG,
     TINY_VOCOS,
@@ -29,6 +29,8 @@ from zipvoice_torch.utils.convert import (
     state_dict_from_jax_params,
     vocos_state_dict_from_jax_params,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT_TEXT = "Hi, there, my friend."

@@ -22,7 +22,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from torch_parity import DS, TINY, jax_jit, jax_pos_encoding, model_pair
+from torch_parity import (  # noqa: F401
+    DS,
+    TINY,
+    jax_jit,
+    jax_pos_encoding,
+    model_pair,
+    one_thread,
+)
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.train.optim import ScaledAdam, eden_schedule
 from zipvoice_torch.train.train_step import make_eval_step, make_train_step
@@ -52,16 +59,6 @@ def pinned(monkeypatch):
     monkeypatch.setattr(tzf, "_stochastic", lambda g, p, fn, x: fn(x))
     monkeypatch.setattr(tzf, "balancer", lambda x, *a, **k: x)
     monkeypatch.setattr(tzf, "MIN_SEQ_LEN", 20)
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread for small CPU work beside JAX's thread pool
-    (which otherwise slows these bf16 steps tenfold); restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 _RNGS = {"dropout": jax.random.PRNGKey(1), "reg": jax.random.PRNGKey(2),

@@ -72,19 +72,24 @@ def _train(corpus, exp, *extra):
         "--average-period", "1", "--no-bf16", "--platform", "cpu", *extra])
 
 
-def test_data_prep_and_training(corpus):
+@pytest.fixture(scope="module")
+def one_epoch(corpus):
+    """(exp dir, history) of one epoch without multi-process flags."""
+    exp = corpus[0] / "exp"
+    return exp, _train(corpus, exp, "--num-epochs", "1")
+
+
+def test_data_prep_and_training(corpus, one_epoch):
     """The counterpart of tests/test_train_cli.py: prepare, fbank and one
     epoch in process write epoch-1, epoch-1-avg, tokens.txt and model.json,
     and log the loss in the exp dir's log; the manifest points at .fz
     features."""
     from zipvoice_torch.data.manifest import read_manifest
 
-    d = corpus[0]
     cuts = read_manifest(corpus[1])
     assert len(cuts) == 8 and all(c.features.endswith(".fz") for c in cuts)
-    history = _train(corpus, d / "exp", "--num-epochs", "1")
+    exp, history = one_epoch
     assert len(history) == 2 and all(np.isfinite(h["loss"]) for h in history)
-    exp = d / "exp"
     assert "loss" in (exp / "log" / "log-train-0").read_text()
     for name in ("epoch-1", "epoch-1-avg", "tokens.txt", "model.json",
                  "env.json"):
@@ -96,17 +101,20 @@ def test_data_prep_and_training(corpus):
     assert json.loads((exp / "model.json").read_text())["model"] == TINY_CFG
 
 
-def test_resume_is_bit_equal_to_an_uninterrupted_run(corpus):
-    """Two epochs straight against one epoch plus ``--start-epoch 2``: the
-    same steps on the same batches, and the parameters, the running
-    average and the ScaledAdam state equal bit for bit.  Then
-    ``generate_averaged_model --epoch 2 --avg 2`` writes a .pt that
-    ``load_model_dir`` reads."""
+def test_resume_is_bit_equal_to_an_uninterrupted_run(corpus, one_epoch):
+    """Two epochs straight against one epoch (``one_epoch``'s, copied) plus
+    ``--start-epoch 2``: the same steps on the same batches, and the
+    parameters, the running average and the ScaledAdam state equal bit for
+    bit.  Then ``generate_averaged_model --epoch 2 --avg 2`` writes a .pt
+    that ``load_model_dir`` reads."""
+    import shutil
+
     from zipvoice_torch.utils.checkpoint_io import load_model_dir
 
     d = corpus[0]
     straight = _train(corpus, d / "straight", "--num-epochs", "2")
-    first = _train(corpus, d / "resumed", "--num-epochs", "1")
+    shutil.copytree(one_epoch[0], d / "resumed")
+    first = one_epoch[1]
     second = _train(corpus, d / "resumed", "--num-epochs", "2",
                     "--start-epoch", "2")
     assert [(h["step"], h["ids"], h["loss"]) for h in first + second] == \
@@ -303,23 +311,71 @@ def test_stereo_from_scratch_and_alternating_steps():
     assert np.isfinite(losses).all() and step.step == 4, losses
 
 
-@pytest.mark.parametrize("flag", [
-    ["--coordinator-address", "localhost:1"], ["--num-processes", "2"],
-    ["--process-id", "1"], ["--num-data-parallel", "2"],
-    ["--per-host-data", "on"], [],
+_GROUP = ["--coordinator-address", "127.0.0.1:1", "--num-processes", "2"]
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--num-processes", "2"], "go together"),
+    (["--coordinator-address", "127.0.0.1:1"], "go together"),
+    (_GROUP + ["--process-id", "2"], "is not one of"),
+    (_GROUP + ["--process-id", "-1"], "is not one of"),
+    (["--num-data-parallel", "2"], "number of processes"),
+    (_GROUP + ["--process-id", "0", "--num-data-parallel", "1"],
+     "number of processes"),
 ])
-def test_waiting_flags_raise_and_cuda_is_the_default(corpus, flag):
-    """Each flag whose part waits raises ``NotImplementedError`` naming its
-    ROADMAP item before any work; with none of them, the trainer wants
-    CUDA by default and fails without it."""
+def test_multi_process_flags_are_checked(corpus, flag, match):
+    """Multi-process flags that do not agree raise ``ValueError`` before
+    any work: the group's three flags go together, the process id is one
+    of the processes, and the data axis spans them all (one device a
+    process)."""
     _, manifest, tokens, cfg = corpus
     argv = ["--train-manifest", manifest, "--token-file", tokens,
             "--tokenizer", "simple", "--model-config", cfg, "--exp-dir",
-            str(corpus[0] / "never"), *flag]
-    if flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            train_zipvoice.main(argv + ["--platform", "cpu"])
-    elif not torch.cuda.is_available():
+            str(corpus[0] / "never"), "--platform", "cpu", *flag]
+    with pytest.raises(ValueError, match=match):
+        train_zipvoice.main(argv)
+    assert not (corpus[0] / "never" / "model.json").exists()
+
+
+def test_cuda_is_the_default(corpus):
+    """Without ``--platform`` the trainer wants CUDA and, without it,
+    fails before any work."""
+    _, manifest, tokens, cfg = corpus
+    argv = ["--train-manifest", manifest, "--token-file", tokens,
+            "--tokenizer", "simple", "--model-config", cfg, "--exp-dir",
+            str(corpus[0] / "never")]
+    if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_zipvoice.main(argv)
     assert not (corpus[0] / "never" / "model.json").exists()
+
+
+def test_one_process_group_writes_the_same_checkpoint(corpus, one_epoch):
+    """One process in a gloo group, its rows loaded per host, trains the
+    epoch that a run without the flags trains: epoch-1, its average and
+    its ScaledAdam state equal bit for bit; the group is closed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    exp = corpus[0] / "group"
+    history = _train(corpus, exp, "--num-epochs", "1",
+                     "--coordinator-address", f"127.0.0.1:{port}",
+                     "--num-processes", "1", "--process-id", "0",
+                     "--per-host-data", "on")
+    assert not dist.is_initialized()
+    want_exp, want_history = one_epoch
+    assert [(h["ids"], h["loss"]) for h in history] == \
+        [(h["ids"], h["loss"]) for h in want_history]
+    for name in ("epoch-1", "epoch-1-avg"):
+        want, want_ts, _ = checkpoint_io.load_checkpoint(
+            str(want_exp / name))
+        got, got_ts, _ = checkpoint_io.load_checkpoint(str(exp / name))
+        assert want.keys() == got.keys()
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+        for a, b in zip(jax.tree.leaves(want_ts), jax.tree.leaves(got_ts)):
+            assert torch.equal(a, b) if torch.is_tensor(a) else a == b

@@ -60,9 +60,10 @@ def test_vocos_matches_jax():
 
 def test_port_imports_no_jax():
     """Importing every zipvoice_torch module, the training step, every
-    kernel wrapper, the front end, the dialog models and pipelines, the
-    CLIs and the serving modules among them, leaves jax, the JAX package,
-    tools/ and egs/ out of sys.modules."""
+    kernel wrapper, the front end (the eight first-party G2Ps included),
+    the dialog models and pipelines, the CLIs, the serving modules and
+    the process group among them, leaves jax, the JAX package, tools/ and
+    egs/ out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys, zipvoice_torch\n"
         "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
@@ -88,7 +89,11 @@ def test_port_imports_no_jax():
         " 'zipvoice_torch.serving.client', 'zipvoice_torch.serving.aot',"
         " 'zipvoice_torch.bin.export_model',"
         " 'zipvoice_torch.bin.infer_exported',"
-        " 'zipvoice_torch.utils.diagnostics'}\n"
+        " 'zipvoice_torch.utils.diagnostics', 'zipvoice_torch.parallel.mesh',"
+        " 'zipvoice_torch.frontend.es_g2p', 'zipvoice_torch.frontend.de_g2p',"
+        " 'zipvoice_torch.frontend.it_g2p', 'zipvoice_torch.frontend.ru_g2p',"
+        " 'zipvoice_torch.frontend.nl_g2p', 'zipvoice_torch.frontend.pl_g2p',"
+        " 'zipvoice_torch.frontend.pt_g2p', 'zipvoice_torch.frontend.fr_g2p'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules"
         " if m.startswith('zipvoice_torch.')]))\n"

@@ -9,12 +9,13 @@ import conftest  # noqa: F401
 import jax.numpy as jnp
 import torch
 
-from torch_parity import (
+from torch_parity import (  # noqa: F401
     DS,
     TINY,
     jax_jit,
     jax_method,
     model_pair,
+    one_torch_thread,
     sample_inputs,
 )
 from zipvoice_torch.models.conditioning import (
@@ -23,6 +24,8 @@ from zipvoice_torch.models.conditioning import (
 )
 from zipvoice_torch.models.zipvoice import strip_prompt
 from zipvoice_torch.utils.convert import state_dict_from_jax_params
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -10,6 +10,7 @@ seconds per call compiling op by op on the CPU.
 import functools
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,22 @@ import torch
 from zipvoice_torch.models.zipformer import set_kernel_config
 from zipvoice_torch.models.zipvoice import build_zipvoice
 from zipvoice_torch.utils.convert import state_dict_from_jax_params
+
+
+def _one_torch_thread():
+    """One torch intra-op thread: the port's small CPU programs beside JAX's
+    own thread pool run faster so than on torch's default pool (bf16 steps
+    tenfold); restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# for a module's tests and fixtures, and for one test
+one_torch_thread = pytest.fixture(scope="module")(_one_torch_thread)
+one_thread = pytest.fixture(_one_torch_thread)
+
 
 TINY = dict(
     fm_decoder_downsampling_factor=(1, 2, 4, 2, 1),

@@ -16,7 +16,9 @@ clipping, schedules and scheduled dropout on, B=8, S=128, T=1280) and:
    (every 4th step, a few hundred extra launches) then falls as often on
    either path over an even number of rounds;
 2. splits kernel steps into loss (forward), backward and optimizer wall
-   time, each closed by a synchronize;
+   time, each closed by a synchronize, and counts the calls that one step
+   makes to ``parallel.mesh.reducing`` (the process group's predicate,
+   False here) beside that call's own host time;
 3. profiles one kernel step under ``torch.profiler``: the device's busy
    share of its wall time and device time by kernel.
 
@@ -136,6 +138,28 @@ def main(argv=None) -> int:
     print(f"{names[1]} step split (median of rounds): " + ", ".join(
         f"{k} {float(np.median(v)):.4f} s" for k, v in parts.items())
         + f" [{card}]", flush=True)
+
+    from zipvoice_torch.parallel import mesh
+
+    reducing, calls = mesh.reducing, [0]
+
+    def counted():
+        calls[0] += 1
+        return reducing()
+
+    mesh.reducing = counted
+    try:
+        step(batch)
+    finally:
+        mesh.reducing = reducing
+    n = 100000
+    t = time.perf_counter()
+    for _ in range(n):
+        reducing()
+    per_call = (time.perf_counter() - t) / n
+    print(f"mesh.reducing() without a group: {calls[0]} calls in one "
+          f"{names[1]} step, {per_call * 1e6:.3f} us each on this host, "
+          f"{calls[0] * per_call * 1e3:.4f} ms a step [{card}]", flush=True)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

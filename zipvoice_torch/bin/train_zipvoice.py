@@ -1,9 +1,9 @@
 """Train ZipVoice (flow-matching TTS) on the card (counterpart of
 ``zipvoice_tpu/bin/train_zipvoice.py``).
 
-One process on one CUDA device: f32 parameters with bf16 compute and no
-loss scaling, ScaledAdam with Eden, the batch-count schedules, a running
-f64 model average, checkpoint directories with rotation and a resumable
+One process a CUDA device: f32 parameters with bf16 compute and no loss
+scaling, ScaledAdam with Eden, the batch-count schedules, a running f64
+model average, checkpoint directories with rotation and a resumable
 sampler state.  The attention kernels are on: every U-Net level whose
 length reaches the gate takes the trainable kernel pair.
 
@@ -14,9 +14,21 @@ length reaches the gate takes the trainable kernel pair.
 
 Resume with ``--start-epoch N+1`` (reads ``exp-dir/epoch-N``).  Without
 CUDA the trainer fails unless given ``--platform cpu``.
+
+Multi-process training starts one process a GPU, each with the same
+arguments plus ``--coordinator-address HOST:PORT`` (process 0's),
+``--num-processes N`` and ``--process-id I``; the processes form an NCCL
+group (gloo with ``--platform cpu``) and process I drives
+``cuda:I % device_count``.  Every process builds the same global batch of
+``--max-duration`` seconds and trains on its contiguous rows of it
+(``--per-host-data on``, the default with more than one process, loads
+only those rows' features), so N processes compute what one process
+computes on that batch (``parallel/mesh.py``).  Process 0 alone writes the
+exp dir's files and checkpoints; every process keeps its own log.
 """
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -26,15 +38,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# flags of the JAX trainer whose parts the port has not taken yet: each
-# raises, naming the ROADMAP item that brings it
-_WAITING = {
-    "coordinator_address": "multi-process training (ROADMAP A5e)",
-    "num_processes": "multi-process training (ROADMAP A5e)",
-    "process_id": "multi-process training (ROADMAP A5e)",
-}
-
 
 def get_parser():
     p = argparse.ArgumentParser(
@@ -70,8 +73,8 @@ def get_parser():
                         "uses 8 DataLoader workers, datamodule.py:143-151)")
     p.add_argument("--per-host-data", type=str, default="auto",
                    choices=("auto", "on", "off"),
-                   help="multi-process row sharding; 'on' waits for "
-                        "multi-process training (ROADMAP A5e)")
+                   help="each process loads only its own rows of the "
+                        "global batch (auto: with more than one process)")
     p.add_argument("--min-len", type=float, default=1.0)
     p.add_argument("--max-len", type=float, default=30.0)
     # optimization (reference train_zipvoice.py defaults)
@@ -126,9 +129,10 @@ def get_parser():
     p.add_argument("--valid-interval", type=int, default=2000)
     p.add_argument("--log-interval", type=int, default=50)
     p.add_argument("--num-data-parallel", type=int, default=None,
-                   help="more than 1 waits for multi-process training "
-                        "(ROADMAP A5e)")
-    p.add_argument("--coordinator-address", type=str, default=None)
+                   help="the data axis's size; one device a process, so it "
+                        "must equal the number of processes (the default)")
+    p.add_argument("--coordinator-address", type=str, default=None,
+                   help="HOST:PORT of process 0; opens the process group")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--platform", type=str, default="cuda",
@@ -155,19 +159,72 @@ def get_parser():
 
 
 def check_flags(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose part waits."""
-    for name, item in _WAITING.items():
-        if getattr(args, name, None):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} waits for {item}")
-    if (args.num_data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "--num-data-parallel > 1 waits for multi-process training "
-            "(ROADMAP A5e)")
-    if args.per_host_data == "on":
-        raise NotImplementedError(
-            "--per-host-data on waits for multi-process training "
-            "(ROADMAP A5e)")
+    """Raise ``ValueError`` for multi-process flags that do not agree."""
+    group = (args.coordinator_address, args.num_processes, args.process_id)
+    if any(v is not None for v in group) and any(v is None for v in group):
+        raise ValueError("--coordinator-address, --num-processes and "
+                         "--process-id go together")
+    world = 1 if args.num_processes is None else args.num_processes
+    if world < 1 or not 0 <= (args.process_id or 0) < world:
+        raise ValueError(f"--process-id {args.process_id} is not one of "
+                         f"--num-processes {args.num_processes}")
+    if args.num_data_parallel not in (None, world):
+        raise ValueError(
+            f"--num-data-parallel {args.num_data_parallel} != the number "
+            f"of processes, {world}: each process drives one device")
+
+
+def open_group(args):
+    """(device, rank, world): the flags checked, the device resolved and,
+    with ``--coordinator-address``, the process group opened (a group that
+    fails to open raises)."""
+    from zipvoice_torch.parallel import mesh
+    from zipvoice_torch.utils.device import resolve_device
+
+    check_flags(args)
+    device = resolve_device(args.platform)
+    if args.coordinator_address is None:
+        return device, 0, 1
+    device = mesh.init_distributed(args.coordinator_address,
+                                   args.num_processes, args.process_id,
+                                   device)
+    logging.info(f"distributed: process {args.process_id} of "
+                 f"{args.num_processes} on {device}")
+    return device, args.process_id, args.num_processes
+
+
+def use_local_rows(args, rank: int, world: int, *datasets) -> None:
+    """Give ``datasets`` this process's rows when ``--per-host-data`` says
+    so (auto: with more than one process)."""
+    from zipvoice_torch.parallel.mesh import local_batch_rows
+
+    if not (args.per_host_data == "on"
+            or (args.per_host_data == "auto" and world > 1)):
+        return
+    for ds in datasets:
+        if ds is not None:
+            ds.local_rows_fn = lambda B: local_batch_rows(rank, world, B)
+    logging.info("per-host data loading: each process materializes only "
+                 "its own batch rows")
+
+
+def take_rows(batch, rank: int, world: int):
+    """This process's rows of a whole batch (``--per-host-data off``); a
+    batch that already holds its rows, or any batch of one process, is
+    returned as it is."""
+    from zipvoice_torch.parallel.mesh import local_batch_rows
+
+    if world == 1 or "global_batch_size" in batch:
+        return batch
+    B = len(batch["features"])
+    rows = local_batch_rows(rank, world, B)
+    out = {k: batch[k][rows] for k in ("features", "features_lens",
+                                       "tokens", "tokens_lens", "valid")}
+    out["global_batch_size"] = B
+    for k in ("text", "ids"):
+        if k in batch:
+            out[k] = [batch[k][r] for r in rows if r < len(batch[k])]
+    return out
 
 
 def build_model(args, tokenizer, dtype, device="cuda"):
@@ -371,10 +428,20 @@ class Profiler:
 
 def main(argv=None):
     """Train; returns the history, one dict a step: epoch, step, loss,
-    grad_norm, wall seconds, frames, cut ids, batch shape (B, S, T)."""
-    args = get_parser().parse_args(argv)
-    check_flags(args)
+    grad_norm, wall seconds, frames, cut ids, batch shape (B, S, T) (the
+    frames, ids and shape of this process's rows)."""
+    from zipvoice_torch.parallel import mesh
 
+    args = get_parser().parse_args(argv)
+    device, rank, world = open_group(args)
+    try:
+        return train(args, device, rank, world)
+    finally:
+        mesh.destroy()
+
+
+def train(args, device, rank: int, world: int):
+    """``main``'s training, as process ``rank`` of ``world`` on ``device``."""
     from zipvoice_torch.data.dataset import (
         FRAME_BUCKETS,
         SpeechSynthesisDataset,
@@ -387,10 +454,10 @@ def main(argv=None):
         init_model_avg,
         update_averaged_model,
     )
+    from zipvoice_torch.parallel import mesh
     from zipvoice_torch.train.optim import ScaledAdam, eden_schedule
     from zipvoice_torch.train.train_step import make_eval_step, make_train_step
     from zipvoice_torch.utils import checkpoint_io
-    from zipvoice_torch.utils.device import resolve_device
     from zipvoice_torch.utils.metrics_tracker import (
         MetricsTracker,
         setup_logger,
@@ -404,19 +471,24 @@ def main(argv=None):
         extend_vocab,
     )
 
-    device = resolve_device(args.platform)
     exp_dir = Path(args.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    # console + log file (reference common.py:448-498)
-    setup_logger(str(exp_dir), 0)
-    # a self-describing exp dir (reference train_zipvoice.py:887-889)
-    shutil.copyfile(args.token_file, exp_dir / "tokens.txt")
+    # console + a log file a process (reference common.py:448-498)
+    setup_logger(str(exp_dir), rank)
+    # every write below is process 0's (the reference's rank 0,
+    # train_zipvoice.py:931-934,645-665)
+    primary = rank == 0
+    if primary:
+        # a self-describing exp dir (reference train_zipvoice.py:887-889)
+        shutil.copyfile(args.token_file, exp_dir / "tokens.txt")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     tokenizer = get_tokenizer(args.tokenizer, args.token_file, args.lang)
     model, cfg = build_model(args, tokenizer, dtype, device)
-    (exp_dir / "model.json").write_text(json.dumps({"model": cfg}, indent=2))
-    write_provenance(exp_dir, {"model_name": args.model_name})
+    if primary:
+        (exp_dir / "model.json").write_text(
+            json.dumps({"model": cfg}, indent=2))
+        write_provenance(exp_dir, {"model_name": args.model_name})
 
     # ---- data -------------------------------------------------------------
     sampler, cuts = make_train_sampler(args)
@@ -444,6 +516,7 @@ def main(argv=None):
         raise ValueError("the training manifests hold no batch (too few "
                          "cuts in [--min-len, --max-len] for a bucket to "
                          "fill --max-duration)")
+    use_local_rows(args, rank, world, dataset, dataset_mixed)
 
     # ---- weights ----------------------------------------------------------
     feat_dim = cfg.get("feat_dim", 100)
@@ -472,7 +545,9 @@ def main(argv=None):
     logging.info(f"model parameters: {n_params / 1e6:.1f}M")
 
     if args.print_diagnostics:
-        print_diagnostics(model, on_device(sample_batch, device))
+        if primary:
+            with mesh.local():
+                print_diagnostics(model, on_device(sample_batch, device))
         return []
 
     # ---- optimizer and steps ----------------------------------------------
@@ -500,7 +575,8 @@ def main(argv=None):
         seed=args.seed + 1,
     )
     eval_step = make_eval_step(model)
-    model_avg = init_model_avg(model.state_dict())
+    # process 0 keeps the running average, which it alone writes
+    model_avg = init_model_avg(model.state_dict()) if primary else None
 
     if args.start_epoch > 1:
         resume = exp_dir / f"epoch-{args.start_epoch - 1}"
@@ -513,13 +589,19 @@ def main(argv=None):
             sampler.load_state_dict(
                 resume_sampler_state(extra["sampler"], args.start_epoch))
         avg_path = str(resume) + "-avg"
-        if os.path.exists(avg_path):
+        if primary and os.path.exists(avg_path):
             model_avg = {k: v.to(device) for k, v in
                          checkpoint_io.load_checkpoint(avg_path)[0].items()}
         logging.info(f"resumed from {resume} at step {train_step.step}")
+    # every process starts from process 0's weights
+    mesh.broadcast_params(model)
 
     def save(name: str) -> None:
+        """Process 0 writes; every process waits for it."""
         path = exp_dir / name
+        if not primary:
+            mesh.barrier()
+            return
         checkpoint_io.save_checkpoint(
             str(path), model.state_dict(),
             train_state={"optimizer": optimizer.state_dict(),
@@ -533,6 +615,7 @@ def main(argv=None):
         # generate_averaged_model works on iteration saves (reference
         # checkpoint.py:38-104)
         checkpoint_io.save_checkpoint(str(path) + "-avg", model_avg)
+        mesh.barrier()
 
     if args.scan_oom:
         # the largest frame bucket at the batch size the duration budget
@@ -565,7 +648,7 @@ def main(argv=None):
             if mem else ""))
 
     tb = None
-    if args.tensorboard:
+    if args.tensorboard and primary:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -601,6 +684,7 @@ def main(argv=None):
             batch_iter = ((b, {}) for b in prefetch_batches(
                 sampler, dataset, num_workers=args.num_workers))
         for batch, kw in batch_iter:
+            batch = take_rows(batch, rank, world)
             t0 = time.perf_counter()
             try:
                 if monitor is not None:
@@ -621,11 +705,12 @@ def main(argv=None):
             except Exception:
                 # the offending batch and model, for a post-mortem
                 # (reference train_zipvoice.py:536-549,769-795)
-                bad = exp_dir / "bad-batch-0.npz"
+                bad = exp_dir / f"bad-batch-{rank}.npz"
                 np.savez(bad, **{k: v for k, v in batch.items()
                                  if isinstance(v, np.ndarray)})
-                checkpoint_io.save_checkpoint(str(exp_dir / "bad-model"),
-                                              model.state_dict())
+                if primary:
+                    checkpoint_io.save_checkpoint(
+                        str(exp_dir / "bad-model"), model.state_dict())
                 logging.error(f"step failed; batch saved to {bad}")
                 raise
             wall = time.perf_counter() - t0
@@ -645,6 +730,9 @@ def main(argv=None):
             profiler.after_batch()
 
             if step % args.log_interval == 0:
+                # the group's frames and utterances (the loss and the norm
+                # are already the global batch's)
+                tracker = tracker.reduced(device)
                 lr = schedule(step) if callable(schedule) else schedule
                 speed = tracker.get("frames", 0) / max(
                     time.time() - t_start, 1e-9)
@@ -660,7 +748,7 @@ def main(argv=None):
                     tracker.write_summary(tb, "train", step)
                 tracker, t_start = MetricsTracker(), time.time()
 
-            if step % args.average_period == 0:
+            if step % args.average_period == 0 and primary:
                 model_avg = update_averaged_model(
                     model_avg, model.state_dict(), step, args.average_period)
 
@@ -669,21 +757,25 @@ def main(argv=None):
                 saved_iters.append(exp_dir / f"checkpoint-{step}")
                 while len(saved_iters) > args.keep_last_k:
                     old = saved_iters.pop(0)
-                    shutil.rmtree(old, ignore_errors=True)
-                    shutil.rmtree(str(old) + "-avg", ignore_errors=True)
+                    if primary:
+                        shutil.rmtree(old, ignore_errors=True)
+                        shutil.rmtree(str(old) + "-avg", ignore_errors=True)
 
             if args.num_iters and step >= args.num_iters:
                 break
 
-            if dev_sampler and step % args.valid_interval == 0:
+            if dev_sampler and primary and step % args.valid_interval == 0:
+                # whole batches on process 0 alone, as the JAX trainer
                 v_loss, v_frames = 0.0, 0
-                for i, vb in enumerate(prefetch_batches(dev_sampler,
-                                                        dataset)):
-                    f = int(vb["features_lens"].sum())
-                    v_loss += float(eval_step(on_device(vb, device))) * f
-                    v_frames += f
-                    if i >= 20:
-                        break
+                whole = functools.partial(dataset, local_rows=False)
+                with mesh.local():
+                    for i, vb in enumerate(prefetch_batches(dev_sampler,
+                                                            whole)):
+                        f = int(vb["features_lens"].sum())
+                        v_loss += float(eval_step(on_device(vb, device))) * f
+                        v_frames += f
+                        if i >= 20:
+                            break
                 v_loss /= max(v_frames, 1)
                 logging.info(f"validation: loss {v_loss:.4f}")
                 if tb:

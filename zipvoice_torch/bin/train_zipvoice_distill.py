@@ -13,7 +13,9 @@ step.
 
 The teacher runs in eval mode with gradients off (on the card, through the
 inference attention kernel); the student in train mode (through the
-trainable pair).
+trainable pair).  The multi-process flags are the base trainer's
+(``bin/train_zipvoice.py``): every process holds the same teacher, and the
+EMA teacher of stage "second" stays the same on every process.
 """
 
 import copy
@@ -40,19 +42,31 @@ def get_parser():
 
 def main(argv=None):
     """Distill; returns the history, one dict a step: epoch, step, loss,
-    ref_loss, wall seconds, frames, cut ids, batch shape (B, S, T)."""
+    ref_loss, wall seconds, frames, cut ids, batch shape (B, S, T) (the
+    frames, ids and shape of this process's rows)."""
+    from zipvoice_torch.bin.train_zipvoice import open_group
+    from zipvoice_torch.parallel import mesh
+
     args = get_parser().parse_args(argv)
     args.model_name = "zipvoice_distill"
+    device, rank, world = open_group(args)
+    try:
+        return distill(args, device, rank, world)
+    finally:
+        mesh.destroy()
+
+
+def distill(args, device, rank: int, world: int):
+    """``main``'s distillation, as process ``rank`` of ``world`` on
+    ``device``."""
     from zipvoice_torch.bin.train_zipvoice import (
         build_model,
-        check_flags,
         load_init_state,
         make_train_sampler,
         on_device,
+        take_rows,
+        use_local_rows,
     )
-
-    check_flags(args)
-
     from zipvoice_torch.data.dataset import (
         SpeechSynthesisDataset,
         prefetch_batches,
@@ -60,6 +74,7 @@ def main(argv=None):
     from zipvoice_torch.frontend.tokenizer import get_tokenizer
     from zipvoice_torch.models.zipformer import set_compute_dtype
     from zipvoice_torch.models.zipvoice import ZipVoice
+    from zipvoice_torch.parallel import mesh
     from zipvoice_torch.train.averaging import (
         init_model_avg,
         update_averaged_model,
@@ -70,19 +85,22 @@ def main(argv=None):
     )
     from zipvoice_torch.train.optim import ScaledAdam, eden_schedule
     from zipvoice_torch.utils import checkpoint_io
-    from zipvoice_torch.utils.device import resolve_device
     from zipvoice_torch.utils.metrics_tracker import setup_logger
 
-    device = resolve_device(args.platform)
     exp_dir = Path(args.exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
-    setup_logger(str(exp_dir), 0)
-    shutil.copyfile(args.token_file, exp_dir / "tokens.txt")
+    setup_logger(str(exp_dir), rank)
+    # every write is process 0's
+    primary = rank == 0
+    if primary:
+        shutil.copyfile(args.token_file, exp_dir / "tokens.txt")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     tokenizer = get_tokenizer(args.tokenizer, args.token_file, args.lang)
     student, cfg = build_model(args, tokenizer, dtype, device)
-    (exp_dir / "model.json").write_text(json.dumps({"model": cfg}, indent=2))
+    if primary:
+        (exp_dir / "model.json").write_text(
+            json.dumps({"model": cfg}, indent=2))
 
     # ---- teacher / student initialization ---------------------------------
     if not (args.teacher_checkpoint or args.checkpoint):
@@ -98,6 +116,8 @@ def main(argv=None):
            for k in missing):
         raise KeyError(f"checkpoint lacks {sorted(missing)[:8]}")
     student.load_state_dict({**missing, **sd}, strict=True)
+    # every process starts from process 0's weights
+    mesh.broadcast_params(student)
 
     if args.distill_stage == "first":
         with torch.device("meta"):
@@ -119,6 +139,7 @@ def main(argv=None):
         tokenizer=tokenizer, on_the_fly_feats=args.on_the_fly_feats,
         feat_scale=args.feat_scale, return_text=True,
     )
+    use_local_rows(args, rank, world, dataset)
 
     schedule = eden_schedule(
         base_lr=args.base_lr, lr_batches=args.lr_batches,
@@ -132,12 +153,17 @@ def main(argv=None):
         schedules=args.schedules, max_duration=args.max_duration,
         ref_duration=args.ref_duration, seed=args.seed,
     )
-    model_avg = init_model_avg(student.state_dict())
+    # process 0 keeps the running average, which it alone writes
+    model_avg = init_model_avg(student.state_dict()) if primary else None
     teacher_params = dict(teacher.named_parameters())
     student_params = dict(student.named_parameters())
 
     def save(name: str) -> None:
+        """Process 0 writes; every process waits for it."""
         path = exp_dir / name
+        if not primary:
+            mesh.barrier()
+            return
         checkpoint_io.save_checkpoint(
             str(path), student.state_dict(),
             train_state={"optimizer": optimizer.state_dict(),
@@ -146,6 +172,7 @@ def main(argv=None):
                    "average_period": args.average_period},
         )
         checkpoint_io.save_checkpoint(str(path) + "-avg", model_avg)
+        mesh.barrier()
 
     history = []
     tot_loss, tot_frames, t0 = 0.0, 0, time.time()
@@ -153,6 +180,7 @@ def main(argv=None):
     for epoch in range(args.start_epoch, last_epoch + 1):
         sampler.set_epoch(epoch)
         for batch in prefetch_batches(sampler, dataset):
+            batch = take_rows(batch, rank, world)
             t_step = time.perf_counter()
             metrics = step_fn(on_device(batch, device))
             if args.distill_stage == "second":
@@ -178,7 +206,7 @@ def main(argv=None):
                     f"frames/s {tot_frames / max(time.time() - t0, 1e-9):.0f}"
                 )
                 tot_loss, tot_frames, t0 = 0.0, 0, time.time()
-            if step % args.average_period == 0:
+            if step % args.average_period == 0 and primary:
                 model_avg = update_averaged_model(
                     model_avg, student.state_dict(), step,
                     args.average_period)

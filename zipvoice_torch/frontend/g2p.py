@@ -9,8 +9,9 @@ piper-phonemize's output structure (a list of phoneme lists, one per clause,
 with the clause-terminating punctuation appended as its own token).
 
 When libespeak-ng is not installed, ``EspeakG2P`` raises at construction
-and ``get_g2p`` takes the first-party English G2P for en-* voices, or a
-clearly-flagged character-level G2P for voices with no first-party G2P.
+and ``get_g2p`` takes the first-party G2P of the voice's language (en, es,
+de, it, ru, nl, pl, pt, fr), or a clearly-flagged character-level G2P for
+voices with no first-party G2P.
 """
 
 import ctypes
@@ -108,25 +109,33 @@ def _split_clauses(text: str):
 
 _BACKEND_CACHE = {}
 
-# first-party G2Ps of the JAX package that the port has not carried over
-# yet; a voice of these languages raises rather than falling to CharG2P,
-# whose ids would differ from the JAX package's
-_UNPORTED_LANGUAGES = ("es", "de", "it", "ru", "nl", "pl", "pt", "fr")
+# the first-party G2Ps beside English, by voice prefix: (module, class,
+# language)
+_FIRST_PARTY = {
+    "es": ("es_g2p", "SpanishG2P", "Spanish"),
+    "de": ("de_g2p", "GermanG2P", "German"),
+    "it": ("it_g2p", "ItalianG2P", "Italian"),
+    "ru": ("ru_g2p", "RussianG2P", "Russian"),
+    "nl": ("nl_g2p", "DutchG2P", "Dutch"),
+    "pl": ("pl_g2p", "PolishG2P", "Polish"),
+    "pt": ("pt_g2p", "PortugueseG2P", "Portuguese"),
+    "fr": ("fr_g2p", "FrenchG2P", "French"),
+}
 
 
 def get_g2p(voice: str = "en-us"):
     """Backend selection: libespeak-ng when present; else the first-party
-    English G2P (frontend/en_g2p.py) for en-* voices; CharG2P for voices
-    with no first-party G2P.  Voices of the eight other first-party
-    languages raise ``NotImplementedError`` until ROADMAP item A3b ports
-    their G2Ps."""
+    G2P of the voice's language (English, and the eight in
+    ``_FIRST_PARTY``); CharG2P last."""
     if voice in _BACKEND_CACHE:
         return _BACKEND_CACHE[voice]
     try:
         backend = EspeakG2P(voice)
     except (RuntimeError, OSError):
+        import importlib
         import logging
 
+        first_party = _FIRST_PARTY.get(voice[:2])
         if voice.startswith("en"):
             from zipvoice_torch.frontend.en_g2p import EnglishG2P
 
@@ -135,12 +144,15 @@ def get_g2p(voice: str = "en-us"):
                 "G2P (espeak-convention IPA; see frontend/en_g2p.py)"
             )
             backend = EnglishG2P(voice)
-        elif voice.startswith(_UNPORTED_LANGUAGES):
-            raise NotImplementedError(
-                f"libespeak-ng unavailable and the first-party G2P for "
-                f"voice {voice} is not ported to zipvoice_torch yet "
-                "(ROADMAP A3b: the es, de, it, ru, nl, pl, pt and fr G2P)"
+        elif first_party is not None:
+            module, cls, language = first_party
+            logging.info(
+                f"libespeak-ng unavailable; using the first-party "
+                f"{language} G2P (espeak-convention IPA; see "
+                f"frontend/{module}.py)"
             )
+            backend = getattr(importlib.import_module(
+                f"zipvoice_torch.frontend.{module}"), cls)(voice)
         else:
             logging.warning(
                 f"libespeak-ng unavailable and no first-party G2P for "

@@ -123,9 +123,6 @@ class EspeakTokenizer(_TokenFileMixin):
         try:
             tokens = phonemize_espeak(text, self.lang)
             return reduce(lambda x, y: x + y, tokens) if tokens else []
-        except NotImplementedError:
-            # a first-party G2P the port lacks: no silent empty tokens
-            raise
         except Exception as ex:
             logging.warning(f"Tokenization of {self.lang} texts failed: {ex}")
             return []

@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.models.zipvoice import ZipVoice
+from zipvoice_torch.parallel import mesh
 
 
 class ZipVoiceDialog(ZipVoice):
@@ -117,6 +118,6 @@ class ZipVoiceDialogStereo(ZipVoiceDialog):
             target[:, :, :F], target[:, :, F:], features
         )
         energy_loss = torch.sum(penalty * loss_mask) / torch.clamp(
-            loss_mask.sum(), min=1
+            mesh.global_sum(loss_mask.sum()), min=1
         )
         return fm_loss + energy_loss * se_weight

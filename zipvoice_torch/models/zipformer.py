@@ -15,6 +15,9 @@ from ``gens.host`` and the branch is taken in Python; their masks are drawn
 on the device from ``gens.device`` (``TrainGenerators``).  ``_stochastic``
 and ``_rand_uniform`` are the only entry points of that randomness, so a
 test can pin them as it pins the JAX package's functions of the same names.
+A mask with one value a sequence is drawn at the global batch and sliced to
+this process's rows (``_rand_rows``, ``TrainGenerators.rows``), so the
+processes of a group draw what one process would.
 
 Mixed precision mirrors the JAX package: the matmul and convolution weights
 run in a compute dtype while norms, bypass scales and downsampling weights
@@ -54,6 +57,7 @@ from zipvoice_torch.ops.scaling import (
     swoosh_r,
     whiten,
 )
+from zipvoice_torch.parallel import mesh
 
 # Shortest sequence that takes the attention-weights kernels (inference and
 # the training pair).  640 is the JAX package's TPU threshold
@@ -76,6 +80,20 @@ class TrainGenerators:
     def __init__(self, seed: int, device="cpu"):
         self.host = torch.Generator().manual_seed(seed)
         self.device = torch.Generator(device=device).manual_seed(seed + 1)
+        # (global batch, this process's row slice) while the draws are a
+        # slice of a global batch's (``parallel.mesh.batch_rows``), or None
+        self.rows = None
+
+    def batch_rows(self, batch_size: int):
+        """(the batch size to draw at, the rows to keep) for a batch of
+        ``batch_size`` rows on this process."""
+        if self.rows is None:
+            return batch_size, slice(None)
+        total, rows = self.rows
+        if rows.stop - rows.start != batch_size:
+            raise ValueError(f"a batch of {batch_size} rows, but this "
+                             f"process holds rows {rows} of {total}")
+        return total, rows
 
 
 def _stochastic(gens: TrainGenerators, prob: float, fn, x):
@@ -95,10 +113,19 @@ def _rand_uniform(gens: TrainGenerators, shape, device=None):
     return torch.rand(shape, generator=gens.device, device=device)
 
 
+def _rand_rows(gens: TrainGenerators, shape, device=None):
+    """``_rand_uniform`` of a batch-leading ``shape``, drawn at the global
+    batch and sliced to this process's rows (``gens.rows``)."""
+    if gens.rows is None:
+        return _rand_uniform(gens, shape, device)
+    total, rows = gens.batch_rows(shape[0])
+    return _rand_uniform(gens, (total, *shape[1:]), device)[rows]
+
+
 def _seq_skip_mask(gens, batch_size, rate, dtype, device):
     """Per-sequence keep mask (B, 1, 1): 0 drops a submodule's contribution
     for that sequence (no 1/(1-p) rescale)."""
-    u = _rand_uniform(gens, (batch_size, 1, 1), device)
+    u = _rand_rows(gens, (batch_size, 1, 1), device)
     return (u > rate).to(dtype)
 
 
@@ -106,7 +133,7 @@ def _shared_dropout(gens, x, rate):
     """Dropout with the mask shared along time (axis 1) and the 1/(1-p)
     rescale."""
     B, _, C = x.shape
-    keep = (_rand_uniform(gens, (B, 1, C), x.device) >= rate).to(x.dtype)
+    keep = (_rand_rows(gens, (B, 1, C), x.device) >= rate).to(x.dtype)
     return x * keep / (1.0 - rate)
 
 
@@ -802,10 +829,11 @@ class EncoderStack(nn.Module):
         src_orig = src
         B, T, C = src.shape
         if key_padding_mask is not None:
-            # Frames past the batch's longest valid length repeat the frame at
-            # that boundary, so the downsample groups average what the
+            # Frames past the batch's longest valid length (the global
+            # batch's, under a process group) repeat the frame at that
+            # boundary, so the downsample groups average what the
             # reference's exact-length, repeat-padded run averages.
-            valid_max = (~key_padding_mask).sum(dim=1).max()
+            valid_max = mesh.global_max((~key_padding_mask).sum(dim=1).max())
             idx = torch.minimum(
                 torch.arange(T, device=src.device),
                 (valid_max - 1).clamp(min=0),

@@ -26,6 +26,7 @@ from zipvoice_torch.models.zipformer import (
     set_compute_dtype,
     set_kernel_config,
 )
+from zipvoice_torch.parallel import mesh
 from zipvoice_torch.utils.device import resolve_device
 
 
@@ -157,11 +158,12 @@ class ZipVoice(nn.Module):
             embed, tokens_lens, features_lens, T
         )
         if speech_condition_mask is None:
+            total, rows = gens.batch_rows(features.shape[0])
+            u_size, u_start = condition_time_mask_draws(
+                gens.device, total, features.device)
             speech_condition_mask = condition_time_mask(
-                *condition_time_mask_draws(gens.device, features.shape[0],
-                                           features.device),
-                features_lens, T, mask_percent=self.mask_percent,
-                suffix=self.mask_suffix,
+                u_size[rows], u_start[rows], features_lens, T,
+                mask_percent=self.mask_percent, suffix=self.mask_suffix,
             )
         speech_condition = features.masked_fill(
             speech_condition_mask[:, :, None], 0.0
@@ -179,7 +181,10 @@ class ZipVoice(nn.Module):
         )
         loss_mask = speech_condition_mask & ~padding_mask
         se = torch.sum(torch.square(vt - ut) * loss_mask[:, :, None])
-        denom = torch.clamp(loss_mask.sum() * vt.shape[-1], min=1)
+        # the global batch's count under a process group: each process's
+        # loss is then its share of the global loss
+        denom = torch.clamp(
+            mesh.global_sum(loss_mask.sum()) * vt.shape[-1], min=1)
         return xt, vt, loss_mask, se / denom
 
     def forward(

@@ -8,10 +8,19 @@ training-only gradient-shaping transforms (``limit_param_value``,
 backward is the JAX package's custom VJP.  Their bounds are Python floats
 (the schedules resolve on the host), so no backward reads a bound from the
 device.
+
+Under a process group of more than one process (``parallel/mesh.py``) the
+batch-wide statistics are those of the global batch, as under the JAX
+package's sharding: the balancer's channel means and gradient RMS, the
+whitening's covariance and norms, and the bypass limiter's gradient sign
+are all-reduced in the backward.  A step's coins are equal on every
+process, so every process reaches these collectives in the same order.
 """
 
 import torch
 import torch.nn.functional as F
+
+from zipvoice_torch.parallel import mesh
 
 
 def swoosh_l(x: torch.Tensor) -> torch.Tensor:
@@ -46,9 +55,14 @@ class _LimitParamValue(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         min_val, max_val = ctx.bounds
-        g = g * torch.where((g > 0) & (x < min_val), -1.0, 1.0).to(g.dtype)
-        g = g * torch.where((g < 0) & (x > max_val), -1.0, 1.0).to(g.dtype)
-        return g, None, None
+        # the flips follow the sign of the global batch's gradient (with
+        # one process, of ``g`` itself; a flip is exactly -1 or 1)
+        total = mesh.global_sum(g)
+        flip = torch.where((total > 0) & (x < min_val), -1.0, 1.0).to(g.dtype)
+        total = total * flip
+        flip = flip * torch.where((total < 0) & (x > max_val), -1.0,
+                                  1.0).to(g.dtype)
+        return g * flip, None, None
 
 
 def limit_param_value(x: torch.Tensor, min_val: float,
@@ -93,9 +107,44 @@ def _proportion_positive_to_mean(v: float) -> float:
     return float(0.8139535143 * ((a - b) / 2.0))
 
 
+def _global_sums(sums, count=None):
+    """The group's totals of the local ``sums`` (each differentiable in this
+    process's input: the other processes' parts enter as constants) and of
+    ``count``, from one all-reduce."""
+    parts = [t.detach().reshape(-1) for t in sums]
+    if count is not None:
+        parts.append(torch.full((1,), float(count), dtype=parts[0].dtype,
+                                device=parts[0].device))
+    flat = mesh.all_reduce_(torch.cat(parts))
+    out, offset = [], 0
+    for t in sums:
+        n = t.numel()
+        out.append(flat[offset: offset + n].view_as(t) + (t - t.detach()))
+        offset += n
+    return out, (flat[-1] if count is not None else None)
+
+
+def _batch_mean(x, dims):
+    """``x``'s mean over ``dims`` (keepdim), over the global batch when
+    ``mesh.reducing()``."""
+    if not mesh.reducing():
+        return torch.mean(x, dim=dims, keepdim=True)
+    local = torch.sum(x, dim=dims, keepdim=True)
+    (total,), count = _global_sums([local], x.numel() // local.numel())
+    return total / count
+
+
 def _balancer_stats(x, reduce_dims):
-    uncentered_var = torch.mean(torch.square(x), dim=reduce_dims, keepdim=True)
-    mean = torch.mean(x, dim=reduce_dims, keepdim=True)
+    if mesh.reducing():
+        count = x.numel() // x.shape[-1]
+        (s2, s1), n = _global_sums(
+            [torch.sum(torch.square(x), dim=reduce_dims, keepdim=True),
+             torch.sum(x, dim=reduce_dims, keepdim=True)], count)
+        uncentered_var, mean = s2 / n, s1 / n
+    else:
+        uncentered_var = torch.mean(torch.square(x), dim=reduce_dims,
+                                    keepdim=True)
+        mean = torch.mean(x, dim=reduce_dims, keepdim=True)
     stddev = torch.sqrt(torch.clamp(uncentered_var - mean * mean, min=1.0e-20))
     rms = torch.sqrt(torch.clamp(uncentered_var, min=1.0e-20))
     return mean / stddev, rms
@@ -133,8 +182,7 @@ class _Balancer(torch.autograd.Function):
             | (rms > max_rms)
         loss_grad = loss_grad * violated.float()
         loss_grad_rms = torch.clamp(
-            torch.sqrt(torch.mean(torch.square(loss_grad), dim=reduce_dims,
-                                  keepdim=True)),
+            torch.sqrt(_batch_mean(torch.square(loss_grad), reduce_dims)),
             min=1.0e-20,
         )
         loss_grad = loss_grad * (grad_scale / loss_grad_rms)
@@ -153,13 +201,22 @@ def balancer(x: torch.Tensor, min_positive: float, max_positive: float,
 
 
 def _whitening_metric(x: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """>= 1, and 1 exactly when each group's covariance is white."""
+    """>= 1, and 1 exactly when each group's covariance is white.  Under
+    ``mesh.reducing()`` the covariance is the global batch's: the frames
+    are centred on the global mean, and the other processes' covariance
+    enters as a constant (the mean's own gradient path sums to zero)."""
     x = x.reshape(-1, x.shape[-1])
     num_frames, num_channels = x.shape
     cpg = num_channels // num_groups
     x = x.reshape(num_frames, num_groups, cpg).transpose(0, 1)
-    x = x - torch.mean(x, dim=1, keepdim=True)
-    x_covar = torch.einsum("gtc,gtd->gcd", x, x)
+    if mesh.reducing():
+        (total,), count = _global_sums(
+            [torch.sum(x.detach(), dim=1, keepdim=True)], num_frames)
+        x = x - total / count
+        (x_covar,), _ = _global_sums([torch.einsum("gtc,gtd->gcd", x, x)])
+    else:
+        x = x - torch.mean(x, dim=1, keepdim=True)
+        x_covar = torch.einsum("gtc,gtd->gcd", x, x)
     diag = torch.diagonal(x_covar, dim1=1, dim2=2)
     x_covar_mean_diag = torch.mean(diag)
     x_covarsq_mean_diag = torch.sum(torch.square(x_covar)) / (
@@ -184,10 +241,15 @@ class _Whiten(torch.autograd.Function):
             metric = _whitening_metric(x32, num_groups)
             (penalty_grad,) = torch.autograd.grad(metric, x32)
         g32 = g.float()
-        scale = grad_scale * (
-            torch.linalg.vector_norm(g32)
-            / (torch.linalg.vector_norm(penalty_grad) + 1.0e-20)
-        )
+        if mesh.reducing():
+            # the global batch's norms, from one all-reduce
+            g_norm, p_norm = torch.sqrt(mesh.global_sum(torch.stack(
+                [torch.sum(torch.square(g32)),
+                 torch.sum(torch.square(penalty_grad))])))
+        else:
+            g_norm = torch.linalg.vector_norm(g32)
+            p_norm = torch.linalg.vector_norm(penalty_grad)
+        scale = grad_scale * (g_norm / (p_norm + 1.0e-20))
         # a device-side select: no sync on the metric
         out = torch.where(metric.detach() < whitening_limit, g32,
                           g32 + penalty_grad * scale)

@@ -31,6 +31,7 @@ from zipvoice_torch.models.conditioning import (
 )
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.ops.schedule import adjusted_batch_count
+from zipvoice_torch.parallel import mesh
 
 
 @torch.no_grad()
@@ -60,12 +61,15 @@ def draw_distill_inputs(gens: TrainGenerators, batch, stage: str):
     feats = batch["features"]
     B, T, F = feats.shape
     dev, g = feats.device, gens.device
-    noise = torch.randn((B, T, F), generator=g, device=dev)
+    # at the global batch, this process's rows (parallel/mesh.py)
+    total, rows = gens.batch_rows(B)
+    noise = torch.randn((total, T, F), generator=g, device=dev)[rows]
     u = torch.rand((3,), generator=g, device=dev)
-    gs = torch.rand((B, 1, 1), generator=g, device=dev) * 2.0
+    gs = torch.rand((total, 1, 1), generator=g, device=dev)[rows] * 2.0
     if stage == "second":
         gs = gs + 1.0
-    span = condition_time_mask(*condition_time_mask_draws(g, B, dev),
+    u_size, u_start = condition_time_mask_draws(g, total, dev)
+    span = condition_time_mask(u_size[rows], u_start[rows],
                                batch["features_lens"], T,
                                mask_percent=(0.7, 1.0))
     t = u[0]
@@ -114,7 +118,8 @@ def distill_losses(student, teacher, batch, draws, stage: str,
     pred_v = (pred_x1 - xt) / denom_t
     target_v = (target_x1 - xt) / denom_t
     m = loss_mask[:, :, None]
-    d = torch.clamp(loss_mask.sum() * F, min=1)
+    # the global batch's count under a process group (parallel/mesh.py)
+    d = torch.clamp(mesh.global_sum(loss_mask.sum()) * F, min=1)
     loss = torch.sum(torch.square(pred_v - target_v) * m) / d
     ref = torch.sum(torch.square(pred_v - (features - noise)) * m) / d
     return loss, ref
@@ -150,6 +155,7 @@ def make_distill_train_step(
     teacher_model.eval()
 
     def step(batch):
+        gens.rows = mesh.batch_rows(batch["features"].shape[0])
         draws = draw_distill_inputs(gens, batch, stage)
         student_kw = {}
         if schedules:
@@ -163,14 +169,17 @@ def make_distill_train_step(
         loss, ref = distill_losses(student_model, teacher_model, batch,
                                    draws, stage, student_kw)
         loss.backward()
+        loss, ref = loss.detach(), ref.detach()
+        # under a process group: the global gradient and losses, from one
+        # all-reduce
+        mesh.all_reduce_grads(student_model.parameters(), loss, ref)
         grads = [p.grad for p in student_model.parameters()
                  if p.grad is not None]
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads))
         optimizer.step()
         step.step += 1
-        return {"loss": loss.detach(), "ref_loss": ref.detach(),
-                "grad_norm": grad_norm}
+        return {"loss": loss, "ref_loss": ref, "grad_norm": grad_norm}
 
     step.step = 0
     step.gens = gens

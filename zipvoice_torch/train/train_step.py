@@ -8,6 +8,11 @@ speech-condition span mask and the CFG text-drop mask from the device
 generator of its ``TrainGenerators``, and every regularizer coin from the
 host generator, so a step never waits on the device until the caller reads
 its metrics.
+
+Under a process group (``parallel/mesh.py``) each process holds its rows of
+the global batch, draws at the global batch and keeps its rows, and takes
+its share of the global loss; one all-reduce after the backward sums the
+gradients and the loss, so every process takes the same update.
 """
 
 from typing import Callable, Dict, Optional
@@ -20,20 +25,23 @@ from zipvoice_torch.models.conditioning import (
 )
 from zipvoice_torch.models.zipformer import TrainGenerators
 from zipvoice_torch.ops.schedule import adjusted_batch_count
+from zipvoice_torch.parallel import mesh
 
 
 def draw_inputs(gens, batch, t=None):
     """A step's flow times (B, 1, 1) (unless given), noise and span mask,
-    drawn from ``gens.device``."""
+    drawn from ``gens.device`` at the global batch and sliced to this
+    process's rows (``gens.rows``)."""
     feats = batch["features"]
     B, T, F = feats.shape
     dev, g = feats.device, gens.device
+    total, rows = gens.batch_rows(B)
     if t is None:
-        t = torch.rand((B, 1, 1), generator=g, device=dev)
-    noise = torch.randn((B, T, F), generator=g, device=dev)
-    span = condition_time_mask(
-        *condition_time_mask_draws(g, B, dev), batch["features_lens"], T
-    )
+        t = torch.rand((total, 1, 1), generator=g, device=dev)[rows]
+    noise = torch.randn((total, T, F), generator=g, device=dev)[rows]
+    u_size, u_start = condition_time_mask_draws(g, total, dev)
+    span = condition_time_mask(u_size[rows], u_start[rows],
+                               batch["features_lens"], T)
     return t, noise, span
 
 
@@ -67,9 +75,11 @@ def make_train_step(
 
     def train_step(batch, **model_kwargs):
         B = batch["features"].shape[0]
+        gens.rows = mesh.batch_rows(B)
         t, noise, span = draw_inputs(gens, batch)
-        cond_drop = torch.rand((B,), generator=gens.device,
-                               device=device) <= condition_drop_ratio
+        total, rows = gens.batch_rows(B)
+        cond_drop = torch.rand((total,), generator=gens.device,
+                               device=device)[rows] <= condition_drop_ratio
         batch_count = None
         if schedules:
             batch_count = adjusted_batch_count(
@@ -87,12 +97,16 @@ def make_train_step(
             **model_kwargs,
         )
         loss.backward()
+        loss = loss.detach()
+        # under a process group: the global batch's gradient and loss,
+        # from one all-reduce
+        mesh.all_reduce_grads(model.parameters(), loss)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads))
         optimizer.step()
         train_step.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": loss, "grad_norm": grad_norm}
 
     train_step.step = 0
     train_step.gens = gens
@@ -109,8 +123,10 @@ def make_eval_step(model: torch.nn.Module, seed: int = 0) -> Callable:
         device = batch["features"].device
         B = batch["features"].shape[0]
         gens = TrainGenerators(seed, device)
-        t = (torch.arange(B, dtype=torch.float32, device=device) / B)
-        t, noise, span = draw_inputs(gens, batch, t=t[:, None, None])
+        gens.rows = mesh.batch_rows(B)
+        total, rows = gens.batch_rows(B)
+        t = torch.arange(total, dtype=torch.float32, device=device) / total
+        t, noise, span = draw_inputs(gens, batch, t=t[rows, None, None])
         return model(
             tokens=batch["tokens"], tokens_lens=batch["tokens_lens"],
             features=batch["features"], features_lens=batch["features_lens"],

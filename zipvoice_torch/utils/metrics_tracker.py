@@ -2,13 +2,20 @@
 MetricsTracker) and per-process log files (common.py:448-498): the port's
 copy of ``zipvoice_tpu/utils/metrics_tracker.py``.
 
-The port trains in one process, so nothing is reduced across ranks.
+In multi-process training each process tracks its own rows' frames and
+utterances (the loss and the gradient norm are already the global batch's),
+and ``reduced`` sums the trackers over the process group when they are
+logged, as the reference all-reduces them across DDP ranks.
 """
 
 import logging
 import os
 from collections import defaultdict
 from typing import Dict
+
+import torch
+
+from zipvoice_torch.parallel import mesh
 
 
 class MetricsTracker(defaultdict):
@@ -49,6 +56,19 @@ class MetricsTracker(defaultdict):
             for k, v in self.items()
             if k not in ("frames", "utterances")
         }
+
+    def reduced(self, device="cpu") -> "MetricsTracker":
+        """The trackers of the process group's processes summed (one
+        all-reduce, every process taking part), or this one alone."""
+        if not mesh.reducing():
+            return self
+        keys = sorted(self)
+        values = mesh.all_reduce_(torch.tensor(
+            [self[k] for k in keys], dtype=torch.float64, device=device))
+        ans = MetricsTracker()
+        for k, v in zip(keys, values.tolist()):
+            ans[k] = v
+        return ans
 
     def write_summary(self, tb_writer, prefix: str, step: int) -> None:
         if tb_writer is None:
