@@ -166,7 +166,29 @@ are built for sm_90a).  Phases, each of which must pass:
    over gloo (NCCL takes one process a device), f32 (TF32 off) at full
    width, B=8 split 4 + 4, two steps, against one process at B=8: losses
    within 1e-5 relative, every parameter within atol 1e-5, rtol 1e-4, both
-   processes' parameters equal bit for bit; the largest |d| printed.
+   processes' parameters equal bit for bit; the largest |d| printed;
+17. the gRPC pair, tensor parallelism and evaluation: (a) a
+   ZipVoice-Distill model dir at the published widths behind
+   ``TTSEngine`` (4 steps, guidance 3.0, max_batch 8) and the gRPC
+   handler's three methods in process with a stub context: the phase-11
+   prompt and its 2.28 s prefix registered, phase 13's texts 0 and 2
+   synthesized in the 1280- and 1024-frame buckets (24 kHz mono WAVs,
+   finite, within [-1, 1]), text 1 streamed (PCM longer than 0.1 s), #1's
+   launches as the gates predict for the recorded buckets, an unknown
+   speaker aborting with INVALID_ARGUMENT (3); where grpc imports, the
+   same over the wire and ``serving/client_grpc.py`` as a subprocess (8
+   requests at concurrency 1 and 4, P50/P90 and the stream's TTFB
+   printed); (b) the base's fm_decoder, f32 (TF32 off), on two gloo
+   processes on the one card, each with half of the heads and hidden units
+   (``parallel/sharding_rules.shard_model``), one forward_fm_decoder at
+   B=8, T=1280 within 2e-4 of one process's replicated forward, 12
+   launches of #1 on each rank, each rank's parameter bytes printed beside
+   the model's, and #1 held against its plain version in f32 (2e-6) at
+   the head counts the ranks give it (2 and 3) at B=8, T in {1280, 640};
+   (c) ``UTMOS22Strong`` (seeded random weights) on the card
+   over (a)'s first WAV at 16 kHz within 1e-4 relative of the CPU, and the
+   ECAPA head at WavLM-large widths (1024 features, 25 hidden states) over
+   seeded (2, 1024, 200) features: a finite (2, 192) embedding.
 
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when
@@ -3000,6 +3022,418 @@ def phase_engines(card, seed, eager_sweep):
     return dict(cli=cli_launches, base=base_launches, config=config_launches)
 
 
+# phase 17: the gRPC pair, tensor parallelism and evaluation on the card.
+# (a) ZipVoice-Distill served as in phase 13 (4 steps, guidance 3.0,
+# max_batch 8) behind the gRPC handler: the phase-11 prompt (3 s) and its
+# 2.28 s prefix registered as two speakers, phase 13's text 0 sent to the
+# first (the 1280-frame bucket) and text 2 to the second (the 1024 one), a
+# stream of text 1 to the first.
+GRPC_SPEAKERS = (("spk0", 0), ("spk2", 2))  # (name, prompt_prefixes index)
+GRPC_REQUESTS = (("spk0", 0), ("spk2", 2))  # (speaker, SERVE_TEXTS index)
+GRPC_CLIENT_ARGS = ("--concurrency", "1,4", "--n", "8", "--stream")
+# (b) the base's fm_decoder, f32, heads split 2 + 2 over two gloo processes
+# on the card, against one process: the ROADMAP's f32 backbone tolerance
+TP_B, TP_T = 8, 1280
+TP_ATOL = 2e-4
+TP_LAUNCHES = 12
+# (c) UTMOS on the card against the CPU, relative
+UTMOS_RTOL = 1e-4
+ECAPA_SHAPE = (2, 1024, 200)  # WavLM-large features: (B, 1024, frames)
+
+# a subprocess: process RANK of two on the card over gloo, its slice of the
+# base (shard_model) and one forward_fm_decoder; saves its output, #1's
+# launches and its parameter bytes
+TP_SCRIPT = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from zipvoice_torch.parallel import mesh
+from zipvoice_torch.parallel.sharding_rules import shard_model
+rank, port, seed, out = (int(sys.argv[2]), sys.argv[3], int(sys.argv[4]),
+                         sys.argv[5])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, "cuda", backend="gloo")
+model = chip_smoke.tp_model(seed)
+counts = shard_model(model)
+held = sum(p.numel() * p.element_size() for p in model.parameters())
+y, launches = chip_smoke.tp_forward(model, seed)
+torch.save({"out": y, "launches": launches, "held": held,
+            "reducing": mesh.reducing(), **counts}, out)
+mesh.destroy()
+"""
+
+
+def tp_model(seed):
+    """The ZipVoice base at its published widths, f32, on the card."""
+    import torch
+
+    from zipvoice_torch.infer.workload import build_base
+
+    return build_base(seed, torch.float32)[0]
+
+
+def tp_forward(model, seed):
+    """(forward_fm_decoder on seeded inputs at (TP_B, TP_T), rows padded
+    to lengths 1280 down to 1110, on the host; #1's launches in it)."""
+    import torch
+
+    rng = np.random.RandomState(seed + 17)
+    F = model.feat_dim
+    x = {k: torch.from_numpy(rng.randn(TP_B, TP_T, F).astype(np.float32))
+         for k in ("xt", "text_condition", "speech_condition")}
+    lens = torch.tensor([TP_T - 170 * i // (TP_B - 1) for i in range(TP_B)])
+    x["padding_mask"] = torch.arange(TP_T)[None, :] >= lens[:, None]
+    x["t"] = torch.from_numpy(rng.uniform(0, 1, TP_B).astype(np.float32))
+    x = {k: v.cuda() for k, v in x.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        y = model.forward_fm_decoder(**x)
+    torch.cuda.synchronize()
+    return y.cpu(), launch_counts()["rel_pos_attention_weights"]
+
+
+class StubContext:
+    """A gRPC servicer context in process: keeps the initial metadata and
+    an abort's code and raises on abort, as grpc's context does."""
+
+    def __init__(self):
+        self.metadata, self.code = None, None
+
+    def send_initial_metadata(self, metadata):
+        self.metadata = metadata
+
+    def abort(self, code, details):
+        self.code = code
+        raise RuntimeError(f"aborted ({code}): {details}")
+
+
+def status_number(code):
+    """A gRPC status as its number (a ``grpc.StatusCode`` or the number)."""
+    return getattr(code, "value", (code,))[0]
+
+
+def phase_grpc(card, seed, tmp):
+    """(a): the gRPC handler in process (and over the wire where grpc
+    imports).  Returns #1's launches in the in-process requests and the
+    first Synthesize's wav (24 kHz)."""
+    import base64
+    import io
+    import subprocess
+    import wave
+
+    import torch
+
+    from zipvoice_torch.bin.make_model_dir import BASE_CONFIG, make_model_dir
+    from zipvoice_torch.frontend.audio import save_wav
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.infer.workload import speech_like_wav
+    from zipvoice_torch.serving import client, grpc_server, server
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    name = "zipvoice_distill"
+    make_model_dir(tmp, name, config=BASE_CONFIG, seed=seed, vocos_config={})
+    model, tok = load_model_dir(tmp, name, dtype=torch.bfloat16)
+    vocos = load_vocos(os.path.join(tmp, "pytorch_model.bin"),
+                       dtype=torch.bfloat16)
+    pipe = InferencePipeline(model, vocos, seed=seed, tokenizer=tok)
+    engine = server.TTSEngine(pipe, max_batch=8, num_step=SERVE_NUM_STEP,
+                              guidance_scale=SERVE_GUIDANCE)
+    handler = grpc_server._TTSHandler(engine, SERVE_NUM_STEP, SERVE_GUIDANCE)
+    prompt = os.path.join(tmp, "prompt.wav")
+    save_wav(prompt, speech_like_wav(seed, seconds=3.0), 24000)
+    prefixes = client.prompt_prefixes(prompt, 4)
+    try:
+        for spk, i in GRPC_SPEAKERS:
+            reply = handler.register(json.dumps({
+                "name": spk, "prompt_text": CLI_PROMPT_TEXT,
+                "wav_b64": base64.b64encode(prefixes[i]).decode()}).encode(),
+                StubContext())
+            if json.loads(reply) != {"ok": True}:
+                raise AssertionError(f"RegisterSpeaker {spk}: {reply!r}")
+        dispatched = record_dispatches(model)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        wavs = []
+        for spk, i in GRPC_REQUESTS:
+            body = handler.synthesize(json.dumps({
+                "speaker": spk, "text": SERVE_TEXTS[i]}).encode(),
+                StubContext())
+            seconds = check_served_wav(f"Synthesize {spk}", body)
+            wavs.append(body)
+            print(f"gRPC Synthesize in process ({spk}, text {i}): "
+                  f"{seconds:.3f} s of audio [{card}]", flush=True)
+        ctx = StubContext()
+        chunks = list(handler.synthesize_stream(json.dumps({
+            "speaker": "spk0", "text": SERVE_TEXTS[1]}).encode(), ctx))
+        pcm = np.concatenate([np.frombuffer(c, "<i2") for c in chunks])
+        seconds = check_served_pcm("SynthesizeStream", pcm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = launch_counts()
+        del model.sample
+        if seconds <= 0.1 or dict(ctx.metadata or ()) != {
+                "sample-rate": "24000"}:
+            raise AssertionError(f"stream: {seconds} s, {ctx.metadata}")
+        want = dict.fromkeys(launched, 0)
+        for _, S, T in dispatched:
+            for k, n in expected_launches(model, S, T,
+                                          SERVE_NUM_STEP).items():
+                want[k] += n
+        print(f"gRPC in process: 2 Synthesize + 1 SynthesizeStream ("
+              f"{len(chunks)} chunks, {seconds:.3f} s) in {wall:.2f} s; "
+              f"buckets (B, S, T) {dispatched}; launches "
+              f"{ {k: v for k, v in launched.items() if v} } (expected "
+              f"{ {k: v for k, v in want.items() if v} }) [{card}]",
+              flush=True)
+        if launched != want or launched["rel_pos_attention_weights"] <= 0:
+            raise AssertionError(f"gRPC launches {launched}, want {want}")
+        if not {T for _, _, T in dispatched} >= {1024, 1280}:
+            raise AssertionError(f"buckets {dispatched}: not 1024 and 1280")
+        for method in (handler.synthesize, handler.synthesize_stream):
+            ctx = StubContext()
+            try:
+                list(method(json.dumps({"speaker": "nobody",
+                                        "text": "x"}).encode(), ctx))
+            except RuntimeError:
+                pass
+            if status_number(ctx.code) != grpc_server.INVALID_ARGUMENT:
+                raise AssertionError(f"{method.__name__}: unknown speaker "
+                                     f"gave {ctx.code}")
+        print("gRPC unknown speaker: Synthesize and SynthesizeStream abort "
+              f"with status {grpc_server.INVALID_ARGUMENT} [{card}]",
+              flush=True)
+
+        try:
+            import grpc
+        except ImportError:
+            grpc = None
+            print("gRPC over the wire: not run (no grpcio on this machine); "
+                  "the handler ran in process above", flush=True)
+        if grpc is not None:
+            srv, port = grpc_server.make_server(engine, 0, SERVE_NUM_STEP,
+                                                SERVE_GUIDANCE)
+            srv.start()
+            try:
+                with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+                    rpc = {m: ch.unary_unary(f"/{grpc_server.SERVICE}/{m}")
+                           for m in ("RegisterSpeaker", "Synthesize")}
+                    rpc["RegisterSpeaker"](json.dumps({
+                        "name": "wire", "prompt_text": CLI_PROMPT_TEXT,
+                        "wav_b64": base64.b64encode(prefixes[0]).decode()
+                    }).encode())
+                    check_served_wav("Synthesize over the wire", rpc[
+                        "Synthesize"](json.dumps({
+                            "speaker": "wire",
+                            "text": SERVE_TEXTS[0]}).encode()))
+                    stream = ch.unary_stream(
+                        f"/{grpc_server.SERVICE}/SynthesizeStream")
+                    check_served_pcm("SynthesizeStream over the wire",
+                                     np.concatenate([
+                                         np.frombuffer(c, "<i2")
+                                         for c in stream(json.dumps({
+                                             "speaker": "wire",
+                                             "text": SERVE_TEXTS[1]
+                                         }).encode())]))
+                t = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m", "zipvoice_torch.serving."
+                     "client_grpc", "--target", f"127.0.0.1:{port}",
+                     "--prompt-wav", prompt, "--prompt-text",
+                     CLI_PROMPT_TEXT, *GRPC_CLIENT_ARGS], cwd=REPO,
+                    env=dict(os.environ, PYTHONPATH=REPO),
+                    capture_output=True, text=True, timeout=600)
+                if r.returncode != 0:
+                    raise AssertionError(f"client_grpc: {r.stderr[-4000:]}")
+                print(f"gRPC over the wire: Register, Synthesize and "
+                      f"SynthesizeStream, then client_grpc "
+                      f"{' '.join(GRPC_CLIENT_ARGS)} in "
+                      f"{time.perf_counter() - t:.1f} s:", flush=True)
+                for line in r.stdout.strip().splitlines():
+                    print(f"  {line} [{card}]", flush=True)
+            finally:
+                srv.stop(0)
+    finally:
+        engine.close()
+    with wave.open(io.BytesIO(wavs[0])) as f:
+        wav = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+    return launched["rel_pos_attention_weights"], wav.astype(
+        np.float32) / 32768.0
+
+
+def tp_kernel_check(card, seed):
+    """#1 against its plain version at the head counts a rank of (b) gives
+    it, f32: 2 heads on the rank that holds head 0, 3 (head 0 and its own
+    two) on the other, at the stacks' T of 1280 and 640 (320 is below the
+    gate)."""
+    import torch
+
+    from zipvoice_torch.kernels.rel_pos_attention import (
+        rel_pos_attention_weights,
+        rel_pos_attention_weights_ref,
+    )
+
+    worst = 0.0
+    for h in (2, 3):
+        for T in (TP_T, TP_T // 2):
+            args = attention_inputs(TP_B, h, T, 32, 4, seed + 17 * h + T,
+                                    torch.float32)
+            got = rel_pos_attention_weights(*args)
+            torch.cuda.synchronize()
+            err = float((got - rel_pos_attention_weights_ref(*args)
+                         ).abs().max())
+            print(f"kernel rel_pos_attention_weights B={TP_B} h={h} T={T} "
+                  f"f32 (a tensor-parallel rank's heads): max|d| vs plain "
+                  f"{err:.3e} (tol {F32_ATOL:.0e}) [{card}]", flush=True)
+            if not err <= F32_ATOL:
+                raise AssertionError(f"f32 kernel disagrees at h={h}, "
+                                     f"T={T}: {err}")
+            worst = max(worst, err)
+            del args, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_tensor_parallel(card, seed, tmp):
+    """(b): two processes on the card over gloo, each with its half of the
+    heads and hidden units, against one process's replicated forward.
+    Returns #1's launches on each rank."""
+    import subprocess
+
+    import torch
+
+    port = free_port()
+    outs = [os.path.join(tmp, f"tp{r}.pt") for r in range(2)]
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_SCRIPT, REPO, str(r), str(port),
+         str(seed), outs[r]], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            model = tp_model(seed)
+            whole = sum(p.numel() * p.element_size()
+                        for p in model.parameters())
+            want, solo_launches = tp_forward(model, seed)
+            del model
+            tp_kernel_check(card, seed)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        for p in procs:
+            o, e = p.communicate(timeout=MULTI_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"TP rank: exit {p.returncode}\n"
+                                     f"{o[-2000:]}\n{e[-6000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+    ranks = [torch.load(o) for o in outs]
+    d = max(float((r["out"] - want).abs().max()) for r in ranks)
+    print(f"tensor parallel: forward_fm_decoder at (B, T) = ({TP_B}, "
+          f"{TP_T}), f32, heads 2 + 2 on two gloo processes, against one "
+          f"process: max |d| {d:.3e} (limit {TP_ATOL}); #1 launches "
+          f"{[r['launches'] for r in ranks]} a rank, {solo_launches} in one "
+          f"process; modules split {[r['split'] for r in ranks]}, kept "
+          f"whole {[r['whole'] for r in ranks]}; parameter bytes a rank "
+          f"{[r['held'] for r in ranks]} of {whole}; "
+          f"{time.perf_counter() - t:.1f} s [{card}]", flush=True)
+    if d > TP_ATOL or not all(r["launches"] == TP_LAUNCHES for r in ranks):
+        raise AssertionError("tensor parallel forward does not match")
+    if not all(r["whole"] == 0 and r["held"] < whole for r in ranks):
+        raise AssertionError("a rank holds the whole model")
+    if any(r["reducing"] for r in ranks):
+        raise AssertionError("batch statistics all-reduced under TP")
+    return ranks[0]["launches"]
+
+
+def phase_eval(card, seed, wav24):
+    """(c): UTMOS22Strong (seeded random weights) on the card against the
+    CPU over ``wav24`` resampled to 16 kHz, and the ECAPA head at WavLM-large
+    widths over seeded features."""
+    import torch
+
+    from zipvoice_torch.eval.speaker_model import EcapaWavLM
+    from zipvoice_torch.eval.utmos_model import UTMOS22Strong
+    from zipvoice_torch.frontend.audio import resample
+
+    wav = torch.from_numpy(resample(wav24, 24000, 16000))[None]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        utmos = UTMOS22Strong().eval()
+        ecapa = EcapaWavLM(feat_dim=ECAPA_SHAPE[1],
+                           num_hidden_states=25).eval()
+    feats = torch.from_numpy(np.random.RandomState(seed).randn(
+        *ECAPA_SHAPE).astype(np.float32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            t = time.perf_counter()
+            cpu = float(utmos(wav, 16000))
+            cpu_s = time.perf_counter() - t
+            utmos.cuda()
+            float(utmos(wav.cuda(), 16000))  # first call: cuDNN's plans
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            card_score = float(utmos(wav.cuda(), 16000))
+            card_s = time.perf_counter() - t
+            emb_cpu = ecapa.head(feats)
+            emb = ecapa.cuda().head(feats.cuda()).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rel = abs(card_score - cpu) / abs(cpu)
+    print(f"UTMOS22Strong (random weights) over {wav.shape[1] / 16000:.2f} s "
+          f"at 16 kHz: card {card_score:.6f} in {card_s * 1e3:.1f} ms, CPU "
+          f"{cpu:.6f} in {cpu_s * 1e3:.1f} ms, relative |d| {rel:.3e} "
+          f"(limit {UTMOS_RTOL}) [{card}]", flush=True)
+    print(f"ECAPA head at WavLM-large widths over {tuple(ECAPA_SHAPE)}: "
+          f"embedding {tuple(emb.shape)}, max |d| against the CPU "
+          f"{float((emb - emb_cpu).abs().max()):.3e}; the WavLM, Whisper "
+          f"and ASR models need transformers and weights, which this "
+          f"machine lacks: their drivers run in the CPU tests [{card}]",
+          flush=True)
+    if not (np.isfinite(card_score) and rel <= UTMOS_RTOL):
+        raise AssertionError(f"UTMOS card {card_score} vs CPU {cpu}")
+    if emb.shape != (ECAPA_SHAPE[0], 192) or not torch.isfinite(emb).all():
+        raise AssertionError(f"ECAPA embedding {emb.shape}")
+
+
+def phase_grpc_tp_eval(card, seed):
+    """Phase 17: (a) gRPC, (b) tensor parallel, (c) evaluation.  Returns
+    #1's launches in (a)'s in-process requests and on each rank in (b)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zipvoice_p17_")
+    try:
+        grpc_launches, wav = phase_grpc(card, seed, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_launches = phase_tensor_parallel(card, seed, tmp)
+        phase_eval(card, seed, wav)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"gRPC, tensor-parallel and evaluation phase: "
+          f"{time.perf_counter() - start:.1f} s wall [{card}]", flush=True)
+    return {"grpc": grpc_launches, "tp": tp_launches}
+
+
 def print_tensor_core_use(names):
     """Each built kernel's tensor-core instructions (HMMA, and MOVM, the
     warp's matrix transpose) in its SASS, from ``cuobjdump``."""
@@ -3094,6 +3528,7 @@ def main(argv=None) -> int:
     engine_launches = phase_engines(card, args.seed, eager_sweep)
     multi_launches = phase_multiprocess(card, args.seed,
                                         train_cli["step_wall"])
+    p17_launches = phase_grpc_tp_eval(card, args.seed)
 
     # each kernel's launches in the run of the path it serves: the default
     # request (phase 3), the kernel-configuration request (phase 9), the
@@ -3176,7 +3611,10 @@ def main(argv=None) -> int:
     for k in kernels:
         if multi_launches[k["name"]]:
             k["launches_multiprocess_path"] = multi_launches[k["name"]]
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - start:.1f} s",
+    # and phase 17's gRPC requests in process and each tensor-parallel rank
+    kernels[0]["launches_grpc_path"] = p17_launches["grpc"]
+    kernels[0]["launches_tensor_parallel_rank"] = p17_launches["tp"]
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - start:.1f} s",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

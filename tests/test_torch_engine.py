@@ -25,8 +25,11 @@ import torch
 
 from test_torch_train_cli import _train, corpus  # noqa: F401
 from torch_parity import TINY, jax_jit, model_pair
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.models import zipformer
 from zipvoice_torch.serving import aot
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NUM_STEP = 2
 # TINY widths, one decoder stack of one layer (as tests/test_torch_distill_

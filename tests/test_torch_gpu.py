@@ -1198,3 +1198,141 @@ def test_one_rank_nccl_all_reduce_leaves_gradients_bit_equal():
             assert torch.equal(a, b)
     finally:
         mesh.destroy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [1, 2, 3])
+def test_rel_pos_attention_kernel_takes_a_ranks_head_count(h, dtype):
+    """The head counts of a tensor-parallel rank of the base's four heads
+    (one, two, or three with head 0 computed for NonlinAttention) at the
+    top level's T=1280, against the plain version."""
+    _cuda()
+    args = _inputs(4, h, 1280, 32, 4, dtype, seed=h)
+    _assert_matches(rel_pos_attention_weights(*args),
+                    rel_pos_attention_weights_ref(*args))
+
+
+class _StubContext:
+    """A gRPC servicer context in process: raises on abort, as grpc's."""
+
+    def __init__(self):
+        self.metadata, self.code = None, None
+
+    def send_initial_metadata(self, metadata):
+        self.metadata = metadata
+
+    def abort(self, code, details):
+        self.code = code
+        raise RuntimeError(details)
+
+
+@pytest.mark.gpu
+def test_grpc_handler_on_the_card(tmp_path):
+    """The gRPC handler's three methods in process, the model in bf16 on
+    the card: a 24 kHz WAV, streamed PCM, INVALID_ARGUMENT (3) for an
+    unknown speaker."""
+    import base64
+    import io
+    import json
+    import wave
+
+    from zipvoice_torch.bin.make_model_dir import (
+        TINY_CONFIG,
+        TINY_VOCOS,
+        make_model_dir,
+    )
+    from zipvoice_torch.infer.pipeline import InferencePipeline
+    from zipvoice_torch.serving import grpc_server
+    from zipvoice_torch.serving.server import TTSEngine, _wav_bytes
+    from zipvoice_torch.utils.checkpoint_io import load_model_dir, load_vocos
+
+    _cuda()
+    make_model_dir(str(tmp_path), "zipvoice_distill", config=TINY_CONFIG,
+                   vocos_config=TINY_VOCOS)
+    model, tok = load_model_dir(str(tmp_path), "zipvoice_distill",
+                                dtype=torch.bfloat16)
+    vocos = load_vocos(str(tmp_path / "pytorch_model.bin"),
+                       dtype=torch.bfloat16)
+    engine = TTSEngine(InferencePipeline(model, vocos, tokenizer=tok),
+                       max_batch=2, num_step=2, guidance_scale=3.0)
+    h = grpc_server._TTSHandler(engine, 2, 3.0)
+    rng = np.random.RandomState(0)
+    prompt = _wav_bytes((0.05 * rng.randn(24000)).astype(np.float32), 24000)
+    try:
+        h.register(json.dumps({"name": "spk", "prompt_text": "hi there.",
+                               "wav_b64": base64.b64encode(prompt).decode()
+                               }).encode(), _StubContext())
+        body = h.synthesize(json.dumps({"speaker": "spk",
+                                        "text": "a short test."}).encode(),
+                            _StubContext())
+        with wave.open(io.BytesIO(body)) as f:
+            assert (f.getframerate(), f.getnchannels()) == (24000, 1)
+            assert f.getnframes() > 2400
+        ctx = _StubContext()
+        pcm = b"".join(h.synthesize_stream(json.dumps({
+            "speaker": "spk", "text": "one. two. three."}).encode(), ctx))
+        assert len(pcm) > 4800 and dict(ctx.metadata) == {
+            "sample-rate": "24000"}
+        for method in (h.synthesize, h.synthesize_stream):
+            ctx = _StubContext()
+            with pytest.raises(RuntimeError):
+                list(method(json.dumps({"speaker": "nobody",
+                                        "text": "x"}).encode(), ctx))
+            assert getattr(ctx.code, "value", (ctx.code,))[0] == 3
+    finally:
+        engine.close()
+
+
+@pytest.mark.gpu
+def test_utmos_on_the_card_matches_the_cpu():
+    """UTMOS22Strong with seeded random weights, f32 without TF32: the
+    card's score within 1e-4 relative of the CPU's."""
+    from zipvoice_torch.eval.utmos_model import UTMOS22Strong
+
+    _cuda()
+    torch.manual_seed(0)
+    model = UTMOS22Strong().eval()
+    wav = torch.from_numpy(
+        0.1 * np.random.RandomState(0).randn(2, 16000).astype(np.float32))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = model(wav, 16000)
+            got = model.cuda()(wav.cuda(), 16000).cpu()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert got.shape == (2,) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+def test_shard_model_on_one_rank_equals_the_unsharded_forward():
+    """A one-process group on the card: ``shard_model`` splits nothing and
+    runs no all-reduce, so the forward equals the unsharded one bit for
+    bit."""
+    import torch_parallel_worker as worker
+
+    from zipvoice_torch.models.zipvoice import build_zipvoice
+    from zipvoice_torch.parallel import mesh
+
+    _cuda()
+    want = build_zipvoice(device="cuda", **worker.TP_CONFIG)
+    want.load_state_dict({k: torch.from_numpy(v)
+                          for k, v in worker.tp_state_dict().items()})
+    inputs = {k: torch.from_numpy(v).cuda()
+              for k, v in worker.tp_inputs().items()}
+    with torch.inference_mode():
+        want = want.forward_fm_decoder(**inputs)
+    mesh.init_distributed(f"127.0.0.1:{worker.free_ports(1)[0]}", 1, 0,
+                          "cuda", backend="gloo")
+    try:
+        got, counts, _ = worker.run_tp_forward("cuda")
+    finally:
+        mesh.destroy()
+    assert counts == {"split": 0, "whole": 0}
+    np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -2,14 +2,18 @@
 ``InferencePipeline`` with the same seed."""
 
 import numpy as np
+import pytest
 
 import conftest  # noqa: F401
 
 import torch
 
 from torch_parity import TINY, TINY_VOCOS, fast_pipeline, model_pair
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.infer.pipeline import InferencePipeline
 from zipvoice_torch.vocoder.vocos import Vocos
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_sample_batch_matches_jax_pipeline():

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import torch
 
 from torch_parity import DS, fast_pipeline
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.bin.make_model_dir import (
     TINY_CONFIG,
     TINY_VOCOS,
@@ -55,6 +56,8 @@ from zipvoice_torch.utils.convert import (
     vocos_state_dict_from_jax_params,
 )
 from zipvoice_torch.vocoder.vocos import build_vocos
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAME = "zipvoice_distill"
 CONFIG = dict(TINY_CONFIG, fm_decoder_downsampling_factor=[1],

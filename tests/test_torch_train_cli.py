@@ -20,6 +20,7 @@ import jax
 import torch
 
 from test_train_cli import TINY_CFG
+from torch_parity import one_torch_thread  # noqa: F401
 from zipvoice_torch.bin import (
     compute_fbank,
     generate_averaged_model,
@@ -29,6 +30,8 @@ from zipvoice_torch.bin import (
 from zipvoice_torch.frontend.audio import save_wav
 from zipvoice_torch.train import averaging
 from zipvoice_torch.utils import checkpoint_io, structural_loaders
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DS = {"fm_decoder": tuple(TINY_CFG["fm_decoder_downsampling_factor"]),
       "text_encoder": (1,)}

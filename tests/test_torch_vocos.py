@@ -2,8 +2,6 @@
 package, f32 on CPU; and the port's import isolation."""
 
 import os
-import subprocess
-import sys
 
 import numpy as np
 
@@ -16,8 +14,6 @@ from torch_parity import TINY_VOCOS, assert_params_like_init, jax_jit
 from zipvoice_torch.ops.stft import istft
 from zipvoice_torch.utils.convert import vocos_state_dict_from_jax_params
 from zipvoice_torch.vocoder.vocos import build_vocos
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_istft_matches_jax():
@@ -61,45 +57,58 @@ def test_vocos_matches_jax():
 def test_port_imports_no_jax():
     """Importing every zipvoice_torch module, the training step, every
     kernel wrapper, the front end (the eight first-party G2Ps included),
-    the dialog models and pipelines, the CLIs, the serving modules and
-    the process group among them, leaves jax, the JAX package, tools/ and
-    egs/ out of sys.modules."""
-    code = (
-        "import importlib, pkgutil, sys, zipvoice_torch\n"
-        "for m in pkgutil.walk_packages(zipvoice_torch.__path__,"
-        " 'zipvoice_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'zipvoice_tpu', 'tools', 'egs'))\n"
-        "assert not bad, bad\n"
-        "need = {'zipvoice_torch.train.train_step',"
-        " 'zipvoice_torch.train.optim', 'zipvoice_torch.ops.schedule',"
-        " 'zipvoice_torch.ops.scaling',"
-        " 'zipvoice_torch.kernels.rel_pos_attention',"
-        " 'zipvoice_torch.kernels.depthwise_conv',"
-        " 'zipvoice_torch.frontend.tokenizer', 'zipvoice_torch.frontend.g2p',"
-        " 'zipvoice_torch.frontend.en_g2p', 'zipvoice_torch.frontend.zh_g2p',"
-        " 'zipvoice_torch.frontend.feature', 'zipvoice_torch.frontend.audio',"
-        " 'zipvoice_torch.utils.checkpoint_io',"
-        " 'zipvoice_torch.bin.infer_zipvoice',"
-        " 'zipvoice_torch.models.dialog',"
-        " 'zipvoice_torch.infer.dialog_pipeline',"
-        " 'zipvoice_torch.bin.infer_zipvoice_dialog',"
-        " 'zipvoice_torch.serving.quantize', 'zipvoice_torch.serving.server',"
-        " 'zipvoice_torch.serving.client', 'zipvoice_torch.serving.aot',"
-        " 'zipvoice_torch.bin.export_model',"
-        " 'zipvoice_torch.bin.infer_exported',"
-        " 'zipvoice_torch.utils.diagnostics', 'zipvoice_torch.parallel.mesh',"
-        " 'zipvoice_torch.frontend.es_g2p', 'zipvoice_torch.frontend.de_g2p',"
-        " 'zipvoice_torch.frontend.it_g2p', 'zipvoice_torch.frontend.ru_g2p',"
-        " 'zipvoice_torch.frontend.nl_g2p', 'zipvoice_torch.frontend.pl_g2p',"
-        " 'zipvoice_torch.frontend.pt_g2p', 'zipvoice_torch.frontend.fr_g2p'}\n"
-        "assert need <= set(sys.modules), need - set(sys.modules)\n"
-        "print(len([m for m in sys.modules"
-        " if m.startswith('zipvoice_torch.')]))\n"
-    )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 46
+    the dialog models and pipelines, the CLIs, the serving modules (the
+    gRPC pair among them), the process group and the tensor-parallel plans,
+    and the evaluation modules among them, leaves jax, the JAX package,
+    tools/ and egs/ out of sys.modules.  The modules are imported in a
+    process forked from the forkserver that tests/test_torch_parallel.py
+    uses (``torch_parallel_worker.FORKSERVER_PRELOAD``: torch and a few
+    port modules, no JAX), which saves this test a torch import."""
+    import json
+    import multiprocessing
+    import tempfile
+
+    import torch_parallel_worker as worker
+
+    need = {
+        "zipvoice_torch.train.train_step", "zipvoice_torch.train.optim",
+        "zipvoice_torch.ops.schedule", "zipvoice_torch.ops.scaling",
+        "zipvoice_torch.kernels.rel_pos_attention",
+        "zipvoice_torch.kernels.depthwise_conv",
+        "zipvoice_torch.frontend.tokenizer", "zipvoice_torch.frontend.g2p",
+        "zipvoice_torch.frontend.en_g2p", "zipvoice_torch.frontend.zh_g2p",
+        "zipvoice_torch.frontend.feature", "zipvoice_torch.frontend.audio",
+        "zipvoice_torch.utils.checkpoint_io",
+        "zipvoice_torch.bin.infer_zipvoice", "zipvoice_torch.models.dialog",
+        "zipvoice_torch.infer.dialog_pipeline",
+        "zipvoice_torch.bin.infer_zipvoice_dialog",
+        "zipvoice_torch.serving.quantize", "zipvoice_torch.serving.server",
+        "zipvoice_torch.serving.client", "zipvoice_torch.serving.aot",
+        "zipvoice_torch.bin.export_model", "zipvoice_torch.bin.infer_exported",
+        "zipvoice_torch.utils.diagnostics", "zipvoice_torch.parallel.mesh",
+        "zipvoice_torch.frontend.es_g2p", "zipvoice_torch.frontend.de_g2p",
+        "zipvoice_torch.frontend.it_g2p", "zipvoice_torch.frontend.ru_g2p",
+        "zipvoice_torch.frontend.nl_g2p", "zipvoice_torch.frontend.pl_g2p",
+        "zipvoice_torch.frontend.pt_g2p", "zipvoice_torch.frontend.fr_g2p",
+        "zipvoice_torch.serving.grpc_server",
+        "zipvoice_torch.serving.client_grpc",
+        "zipvoice_torch.parallel.sharding_rules",
+        "zipvoice_torch.eval.metrics", "zipvoice_torch.eval.cpsim_cli",
+        "zipvoice_torch.eval.utmos_model", "zipvoice_torch.eval.utmos_cli",
+        "zipvoice_torch.eval.speaker_model", "zipvoice_torch.eval.sim_cli",
+        "zipvoice_torch.eval.wer_cli"}
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(worker.FORKSERVER_PRELOAD)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "modules.json")
+        p = ctx.Process(target=worker.import_check, args=(out,))
+        p.start()
+        p.join(120)
+        if p.is_alive():
+            p.kill()
+        assert p.exitcode == 0, p.exitcode
+        with open(out) as f:
+            found = json.load(f)
+    assert not found["bad"], found["bad"]
+    assert need <= set(found["port"]), need - set(found["port"])
+    assert len(found["port"]) >= 57

@@ -7,7 +7,10 @@ has imported torch, ``torch._dynamo`` and this module once
 process of ``child``, that runs one scenario of ``SCENARIOS`` on its rows
 of the same global batch, or the trainer CLI with ``--per-host-data on``
 or ``off``, and writes an .npz.  ``run_scenarios`` with a world of one is
-the one-process reference that the tests compute themselves.  On the
+the one-process reference that the tests compute themselves.  The same
+forkserver forks tests/test_torch_tensor_parallel.py's ranks
+(``tp_child``: a tensor-parallel ``forward_fm_decoder``) and
+tests/test_torch_vocos.py's import check (``import_check``).  On the
 card the test starts the processes as scripts, each running every
 scenario:
 
@@ -235,6 +238,76 @@ def run_cli(corpus: str, port: int, rank: int, world: int, per_host: str):
     return out
 
 
+# tests/test_torch_tensor_parallel.py: tests/test_tensor_parallel.py's model
+# (CONFIG at fm_decoder dim 64, feed-forward 128: 4 heads, hidden widths
+# 48, 96, 128 and 160) and forward_fm_decoder inputs
+TP_CONFIG = dict(CONFIG, fm_decoder_dim=64, fm_decoder_feedforward_dim=128)
+TP_B, TP_T = 2, 32
+
+
+def tp_state_dict(seed: int = 0):
+    """The reference-layout weights of the tensor-parallel test model, as
+    numpy: the port's init from ``seed``, every weight perturbed so that no
+    init constant hides a wiring fault."""
+    rng = np.random.RandomState(seed)
+    model = build_zipvoice(device="cpu", seed=seed, **TP_CONFIG)
+    return {k: np.asarray(v.numpy() + np.float32(0.05)
+                          * np.asarray(rng.randn(*v.shape), np.float32))
+            for k, v in model.state_dict().items()}
+
+
+def tp_inputs(seed: int = 1):
+    """forward_fm_decoder's inputs, as numpy: the second row's last 5
+    frames padded."""
+    rng = np.random.RandomState(seed)
+    F = TP_CONFIG["feat_dim"]
+    xt, tc, sc = (rng.randn(TP_B, TP_T, F).astype(np.float32)
+                  for _ in range(3))
+    mask = np.zeros((TP_B, TP_T), bool)
+    mask[1, -5:] = True
+    return dict(t=np.full((TP_B,), 0.5, np.float32), xt=xt,
+                text_condition=tc, speech_condition=sc, padding_mask=mask)
+
+
+def run_tp_forward(device="cpu"):
+    """This process's tensor-parallel forward_fm_decoder (the whole model
+    with no group open): (output, the modules split and kept whole, the
+    parameter bytes this process holds)."""
+    from zipvoice_torch.parallel.sharding_rules import shard_model
+
+    model = build_zipvoice(device=device, **TP_CONFIG)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in tp_state_dict().items()})
+    counts = shard_model(model)
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    with torch.inference_mode():
+        out = model.forward_fm_decoder(**{
+            k: torch.from_numpy(v).to(device) for k, v in tp_inputs().items()})
+    return out.cpu().numpy(), counts, held
+
+
+def tp_child(rank: int, world: int, port: int, out: str):
+    """A forked process of the tensor-parallel test: rank ``rank`` of a
+    gloo group of ``world``; writes its output to ``out``, or the traceback
+    to ``out + ".err"``."""
+    torch.set_num_threads(1)
+    try:
+        mesh.init_distributed(f"127.0.0.1:{port}", world, rank, "cpu")
+        try:
+            y, counts, held = run_tp_forward()
+            # the ranks hold one batch: no batch statistic is all-reduced
+            reducing = mesh.reducing()
+        finally:
+            mesh.destroy()
+        np.savez(out, out=y, held=held, reducing=int(reducing), **counts)
+    except BaseException:
+        import traceback
+
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
 def run_group(names, rank: int, world: int, port: int, device="cpu"):
     """The scenarios ``names`` as process ``rank`` of a gloo group of
     ``world`` at ``port``."""
@@ -246,9 +319,32 @@ def run_group(names, rank: int, world: int, port: int, device="cpu"):
         mesh.destroy()
 
 
+def import_check(out: str):
+    """In a forked process of the forkserver (which imports no JAX): import
+    every zipvoice_torch module, then write the modules of jax, flax, the
+    JAX package, tools/ and egs/ found in ``sys.modules`` and the port's
+    modules there, as JSON, to ``out``."""
+    import importlib
+    import json
+    import pkgutil
+
+    import zipvoice_torch
+
+    for m in pkgutil.walk_packages(zipvoice_torch.__path__,
+                                   "zipvoice_torch."):
+        importlib.import_module(m.name)
+    with open(out, "w") as f:
+        json.dump({
+            "bad": sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "flax", "zipvoice_tpu", "tools", "egs")),
+            "port": sorted(m for m in sys.modules
+                           if m.startswith("zipvoice_torch."))}, f)
+
+
 # what the forkserver imports once for every process it forks
 FORKSERVER_PRELOAD = ["torch._dynamo", "torch_parallel_worker",
-                      "zipvoice_torch.bin.train_zipvoice"]
+                      "zipvoice_torch.bin.train_zipvoice",
+                      "zipvoice_torch.parallel.sharding_rules"]
 
 
 def jobs():

@@ -433,12 +433,16 @@ class RelPosAttentionWeights(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Applies precomputed attention weights to projected values."""
+    """Applies precomputed attention weights to projected values.  The
+    weights' first ``skip_heads`` heads are not its own (under tensor
+    parallelism, ``parallel/sharding_rules.py``, a rank that lacks head 0
+    computes it first for NonlinAttention)."""
 
     def __init__(self, embed_dim: int, num_heads: int, value_head_dim: int):
         super().__init__()
         self.num_heads = num_heads
         self.value_head_dim = value_head_dim
+        self.skip_heads = 0
         # the application kernel, in inference at T >= MIN_APPLY_SEQ_LEN
         # (set_attention_kernel(..., apply=True))
         self.use_kernel = False
@@ -451,6 +455,8 @@ class SelfAttention(nn.Module):
         B, T, _ = x.shape
         h, vd = self.num_heads, self.value_head_dim
         v = self.in_proj(x).reshape(B, T, h, vd).transpose(1, 2)
+        if self.skip_heads:
+            attn_weights = attn_weights[:, self.skip_heads:]
         if self.use_kernel and not train and T >= MIN_APPLY_SEQ_LEN:
             out = attention_apply(attn_weights, v.contiguous())
         else:

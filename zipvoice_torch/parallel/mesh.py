@@ -34,6 +34,9 @@ import torch.distributed as dist
 
 # depth of ``local()`` contexts: inside one, this process computes alone
 _LOCAL = [0]
+# set by tensor parallelism (``sharding_rules.shard_model``) until
+# ``destroy()``: the group's processes hold the same batch
+_BATCH_REPLICATED = [False]
 
 
 def init_distributed(coordinator_address: str, num_processes: int,
@@ -58,8 +61,16 @@ def init_distributed(coordinator_address: str, num_processes: int,
 
 
 def destroy() -> None:
+    _BATCH_REPLICATED[0] = False
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+def replicate_batch() -> None:
+    """Every process of the group holds the same batch from now until
+    ``destroy()`` (tensor parallelism): ``reducing()`` is False, so the
+    batch-wide statistics are taken locally, with no collective."""
+    _BATCH_REPLICATED[0] = True
 
 
 def group_active() -> bool:
@@ -70,9 +81,11 @@ def group_active() -> bool:
 
 def reducing() -> bool:
     """Batch-wide statistics must be all-reduced: a group of more than one
-    process is active.  With one process or none this is False and the
-    helpers below add no work."""
-    return group_active() and dist.get_world_size() > 1
+    process is active and splits the batch.  With one process or none, or
+    a batch that every process holds whole (``replicate_batch``), this is
+    False and the helpers below add no work."""
+    return (group_active() and not _BATCH_REPLICATED[0]
+            and dist.get_world_size() > 1)
 
 
 @contextlib.contextmanager
