@@ -44,6 +44,7 @@ from zipvoice_torch.frontend.text_chunking import (
     chunk_tokens_punctuation,
 )
 from zipvoice_torch.models.zipvoice import strip_prompt
+from zipvoice_torch.utils import trace
 from zipvoice_torch.utils.device import resolve_device
 
 TOKEN_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512, 768)
@@ -134,8 +135,14 @@ class InferencePipeline:
         """Returns (wav (C, T) float32, metrics dict).  Besides the JAX
         package's metrics, ``t_frontend`` is the host seconds of the prompt
         and text preparation, ``chunk_tokens`` the token count of each
-        chunk, and ``frames`` the generated frames over all chunks."""
+        chunk, and ``frames`` the generated frames over all chunks.  While
+        tracing is on (``utils/trace.py``), ``trace`` is the call's spans
+        and counters."""
         t_front = time.perf_counter()
+        traced = trace.on
+        if traced:
+            trace.begin(t_front)
+            front = trace.span("zv.frontend", t_front)
         sr = self.sampling_rate
         prompt_features, prompt_rms, prompt_duration = self._prompt(
             prompt_wav_path, target_rms, trim=True
@@ -165,6 +172,8 @@ class InferencePipeline:
         )
 
         start_t = time.perf_counter()
+        if traced:
+            front.end(start_t)
         chunked_feats: List[np.ndarray] = []
         for batch_tokens in tokens_batches:
             feats, feats_lens = self._sample_batch(
@@ -177,7 +186,10 @@ class InferencePipeline:
 
         start_vocoder_t = time.perf_counter()
         chunked_wavs = self._vocode_chunks(chunked_feats)
-        t = time.perf_counter() - start_t
+        end_t = time.perf_counter()
+        t = end_t - start_t
+        if traced:
+            merge = trace.span("zv.merge", end_t)
 
         if prompt_rms < target_rms:
             chunked_wavs = [w * prompt_rms / target_rms for w in chunked_wavs]
@@ -190,6 +202,8 @@ class InferencePipeline:
         final_wav = remove_silence(
             final_wav, sr, only_edge=(not remove_long_sil), trail_sil=0
         )
+        if traced:
+            call_trace = trace.finish(merge.end())
 
         t_no_vocoder = start_vocoder_t - start_t
         t_vocoder = t - t_no_vocoder
@@ -206,6 +220,8 @@ class InferencePipeline:
             "chunk_tokens": [len(c) for c in chunked_tokens],
             "frames": sum(f.shape[0] for f in chunked_feats),
         }
+        if traced:
+            metrics["trace"] = call_trace
         return final_wav, metrics
 
     def generate_stream(self, prompt_tokens: List[int],
@@ -348,8 +364,14 @@ class InferencePipeline:
             num_step=num_step, guidance_scale=guidance_scale,
             speed=speed, t_shift=t_shift,
         )
+        traced = trace.on
+        if traced:
+            copy_out = trace.span("zv.sample.copy_out")
         feats = x1_wo[:B_real].float().cpu().numpy() / self.feat_scale
-        return feats, wo_lens[:B_real].cpu().numpy()
+        lens = wo_lens[:B_real].cpu().numpy()
+        if traced:
+            trace.drained(copy_out.end())
+        return feats, lens
 
     def _sample_batch_device(self, batch_tokens, prompt_tokens,
                              prompt_features, num_step, guidance_scale,
@@ -362,6 +384,9 @@ class InferencePipeline:
         list per row; ``prompt_features`` one (T, F) array or one per row;
         ``speed`` a scalar or one per row.  The batch pads to its bucket by
         repeating row 0."""
+        traced = trace.on
+        if traced:
+            prepare = trace.span("zv.sample.prepare")
         B_real = len(batch_tokens)
         B = bucket_length(B_real, BATCH_BUCKETS)
         if prompt_tokens and isinstance(prompt_tokens[0], (list, tuple)):
@@ -429,6 +454,10 @@ class InferencePipeline:
         if (B, S, T) not in self._seen_buckets:
             self._seen_buckets.add((B, S, T))
             logging.info(f"sample bucket B={B} S={S} T={T}")
+        if traced:
+            trace.count("sample.row_frames", B * T)
+            trace.count("sample.real_frames", int(fl[:B_real].sum()))
+            prepare.end()
 
         x1_wo, wo_lens = self._sample_device(
             dict(tokens=tok, tokens_lens=tok_lens, prompt_tokens_lens=ptl,
@@ -480,6 +509,10 @@ class InferencePipeline:
         names = ("tokens", "tokens_lens", "prompt_tokens_lens",
                  "prompt_features", "prompt_features_lens", "features_lens",
                  "noise")
+        traced = trace.on
+        if traced:
+            enqueue = trace.span("zv.sample.enqueue", device=self.device)
+            trace.queued(enqueue.t0)
         inputs = {}
         for n in names:
             t = self._upload(host[n])
@@ -495,8 +528,11 @@ class InferencePipeline:
                 x1, padding_mask = self._run_model(
                     "sample", **inputs, num_step=num_step,
                     guidance_scale=guidance_scale, t_shift=t_shift)
-            return strip_prompt(x1, padding_mask,
-                                inputs["prompt_features_lens"])
+            out = strip_prompt(x1, padding_mask,
+                               inputs["prompt_features_lens"])
+        if traced:
+            enqueue.end()
+        return out
 
     def _run_model(self, method: str, **inputs):
         """``self.model.<method>(**inputs)``, on the int8 weights expanded
@@ -528,16 +564,23 @@ class InferencePipeline:
                 bucket_length(f.shape[0], FRAME_BUCKETS), []
             ).append(i)
         hop = self.vocoder.hop_length
+        traced = trace.on
         for T, idxs in groups.items():
+            if traced:
+                group = trace.span("zv.vocode")
             B = bucket_length(len(idxs), BATCH_BUCKETS)
             mel = np.zeros((B, T, feats[0].shape[1]), np.float32)
             for j, i in enumerate(idxs):
                 mel[j, : feats[i].shape[0]] = feats[i]
+            if traced:
+                trace.queued()
             with torch.inference_mode():
                 wav = torch.clamp(
                     self._run_vocoder(torch.from_numpy(mel).to(self.device)),
                     -1.0, 1.0,
                 ).cpu().numpy()
+            if traced:
+                trace.drained(group.end())
             for j, i in enumerate(idxs):
                 out[i] = wav[j, : feats[i].shape[0] * hop]
         return out

@@ -9,6 +9,8 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
+from zipvoice_torch.utils import trace
+
 
 def get_time_steps(t_start: float = 0.0, t_end: float = 1.0,
                    num_step: int = 10, t_shift: float = 1.0) -> np.ndarray:
@@ -139,6 +141,9 @@ def euler_sample(
       t > 0.5 the unconditional half drops the speech condition, for
       t <= 0.5 it keeps it and the scale doubles.  A tensor scale (B, 1, 1)
       always takes this path, as in JAX.
+
+    With tracing on, each step is a ``zv.step`` span (``utils/trace.py``),
+    outside traced programs and graph captures only.
     """
     ts = _time_grid(t_start, t_end, num_step, t_shift, x.device)
     x = x.float()
@@ -146,8 +151,13 @@ def euler_sample(
     if not distill and (torch.is_tensor(guidance_scale)
                         or guidance_scale != 0.0):
         cfg = cfg_inputs(text_condition, padding_mask)
+    traced = trace.on and trace.steppable(x)
     for t, t_next in zip(ts[:-1], ts[1:]):
+        if traced:
+            step = trace.span("zv.step")
         x = euler_step(velocity_fn, x, t, t_next, text_condition,
                        speech_condition, padding_mask, guidance_scale,
                        distill, cfg)
+        if traced:
+            step.end()
     return x

@@ -1,4 +1,4 @@
-"""Diagnostics and profiling (counterpart of
+"""Diagnostics (counterpart of
 ``zipvoice_tpu/utils/diagnostics.py``).
 
 The reference's forward-hook machinery (zipvoice/utils/diagnostics.py:
@@ -12,14 +12,11 @@ again here:
 - ``NonfiniteMonitor``: the ``--inf-check`` hooks of a training run, which
   name the modules whose outputs hold inf/NaN in the order they finished;
   ``find_nonfinite`` does the same for a tree of tensors (weights,
-  gradients);
-- ``profile``: a context manager around ``torch.profiler`` writing a
-  TensorBoard-loadable trace.
+  gradients).
 
 The statistics are the JAX package's numpy code, on host copies in f32.
 """
 
-import contextlib
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -243,22 +240,6 @@ def assert_all_finite(tree: Any, what: str = "tree") -> None:
     bad = find_nonfinite(tree)
     if bad:
         raise FloatingPointError(f"non-finite values in {what}: {bad}")
-
-
-@contextlib.contextmanager
-def profile(logdir: str):
-    """``torch.profiler`` over the block, the card included where there is
-    one, written to ``logdir`` as a TensorBoard trace (its profile
-    plugin reads it)."""
-    from torch.profiler import ProfilerActivity, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
-        yield prof
 
 
 def format_stats(stats: Dict[str, Dict], top: int = 0,
