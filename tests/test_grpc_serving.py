@@ -49,12 +49,12 @@ def test_grpc_end_to_end(tiny_model_dir):  # noqa: F811
         resp = register(json.dumps({
             "name": "spk", "prompt_text": "hello there",
             "wav_b64": _wav_b64(prompt, sr),
-        }).encode())
+        }).encode(), timeout=300)
         assert json.loads(resp)["ok"]
 
         body = synthesize(json.dumps({
             "speaker": "spk", "text": "a short test.",
-        }).encode())
+        }).encode(), timeout=300)
         with wave_mod.open(io.BytesIO(bytes(body))) as f:
             assert f.getframerate() == sr
             n = f.getnframes()
@@ -65,7 +65,7 @@ def test_grpc_end_to_end(tiny_model_dir):  # noqa: F811
         chunks = list(syn_stream(json.dumps({
             "speaker": "spk",
             "text": "first sentence. second sentence. third one.",
-        }).encode()))
+        }).encode(), timeout=300))
         assert len(chunks) >= 1
         pcm = np.concatenate(
             [np.frombuffer(bytes(c), "<i2") for c in chunks]
@@ -77,6 +77,6 @@ def test_grpc_end_to_end(tiny_model_dir):  # noqa: F811
         with pytest.raises(grpc.RpcError):
             synthesize(json.dumps({
                 "speaker": "nope", "text": "x",
-            }).encode())
+            }).encode(), timeout=300)
     finally:
         server.stop(0)

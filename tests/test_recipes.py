@@ -77,7 +77,8 @@ def test_recipe_scripts_syntax():
                         recursive=True)
     assert len(scripts) >= 10
     for s in scripts:
-        r = subprocess.run(["bash", "-n", s], capture_output=True, text=True)
+        r = subprocess.run(["bash", "-n", s], capture_output=True, text=True,
+                           timeout=120)
         assert r.returncode == 0, f"{s}: {r.stderr}"
 
 
@@ -95,7 +96,7 @@ def test_validate_manifest(tmp_path):
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
         [sys.executable, "egs/zipvoice/utils/validate_manifest.py", m],
-        cwd=REPO, env=env, capture_output=True, text=True,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 1
     assert "duplicate cut id" in r.stderr
@@ -106,7 +107,7 @@ def test_validate_manifest(tmp_path):
     write_manifest(m, [good])
     r = subprocess.run(
         [sys.executable, "egs/zipvoice/utils/validate_manifest.py", m],
-        cwd=REPO, env=env, capture_output=True, text=True,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
 
@@ -126,7 +127,7 @@ def test_prepare_opendialog(tmp_path):
         [sys.executable, "egs/zipvoice_dialog/local/prepare_opendialog.py",
          "--dataset-path", str(tmp_path), "--output-dir", str(out),
          "--dev-cuts", "2", "--skip-durations"],
-        cwd=REPO, env=env, capture_output=True, text=True,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     from zipvoice_tpu.data.manifest import read_manifest

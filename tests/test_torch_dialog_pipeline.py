@@ -253,7 +253,7 @@ def cli_runs(dirs, tmp_path_factory):
     for p in procs.values():
         if p.poll() is None:
             p.kill()
-            p.communicate()
+            p.communicate(timeout=60)
 
 
 @pytest.mark.parametrize("name", NAMES)

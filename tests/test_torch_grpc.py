@@ -102,10 +102,11 @@ def _methods(channel):
 def test_grpc_end_to_end(served):
     _, _, channel = served
     rpc = _methods(channel)
-    assert json.loads(rpc["RegisterSpeaker"](_register_request()))["ok"]
+    assert json.loads(rpc["RegisterSpeaker"](_register_request(),
+                                              timeout=300))["ok"]
 
     body = rpc["Synthesize"](json.dumps({
-        "speaker": "spk", "text": "a short test."}).encode())
+        "speaker": "spk", "text": "a short test."}).encode(), timeout=300)
     with wave.open(io.BytesIO(bytes(body))) as f:
         assert (f.getframerate(), f.getnchannels()) == (SR, 1)
         n = f.getnframes()
@@ -114,7 +115,8 @@ def test_grpc_end_to_end(served):
 
     chunks = list(rpc["SynthesizeStream"](json.dumps({
         "speaker": "spk",
-        "text": "first sentence. second sentence. third one."}).encode()))
+        "text": "first sentence. second sentence. third one."}).encode(),
+        timeout=300))
     assert len(chunks) >= 1
     pcm = np.concatenate([np.frombuffer(bytes(c), "<i2") for c in chunks])
     assert pcm.size > SR * 0.1 and np.abs(pcm).max() > 0
@@ -122,7 +124,8 @@ def test_grpc_end_to_end(served):
     for method in ("Synthesize", "SynthesizeStream"):
         with pytest.raises(grpc.RpcError) as e:
             list(rpc[method](json.dumps({"speaker": "nope",
-                                         "text": "x"}).encode()))
+                                         "text": "x"}).encode(),
+                                timeout=300))
         assert e.value.code() == grpc.StatusCode.INVALID_ARGUMENT
 
 
@@ -161,9 +164,9 @@ def test_synthesize_equals_engine_output(model_dir):
     try:
         with grpc.insecure_channel(f"localhost:{port}") as channel:
             rpc = _methods(channel)
-            rpc["RegisterSpeaker"](_register_request())
+            rpc["RegisterSpeaker"](_register_request(), timeout=300)
             body = rpc["Synthesize"](json.dumps({
-                "speaker": "spk", "text": text}).encode())
+                "speaker": "spk", "text": text}).encode(), timeout=300)
         # the prompt as the wire carries it, 16-bit
         wav, sr = _decode_wav_b64(json.loads(_register_request())["wav_b64"])
         entry = engines[1].cache.add("spk", PROMPT_TEXT, wav, sr)

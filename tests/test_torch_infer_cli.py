@@ -240,7 +240,7 @@ def cli_runs(model_dir, tmp_path_factory):
     for p in procs.values():
         if p.poll() is None:
             p.kill()
-            p.communicate()
+            p.communicate(timeout=60)
 
 
 def test_cli_runs_on_the_cpu(cli_runs):

@@ -1,13 +1,16 @@
 """Training step + multi-device sharding on the virtual 8-device CPU mesh."""
 
 import numpy as np
+import pytest
 
 import conftest  # noqa: F401
 
 import jax
 
 
+@pytest.mark.slow
 def test_dryrun_multichip_8():
+    """Slow: the full-123M data-parallel step's cold XLA:CPU compile takes about 1100 s; its tiny-width halves are covered by test_multiprocess_train.py, test_tensor_parallel.py::test_tp_forward_matches_replicated and test_dp_grads_match_single_device below."""
     import __graft_entry__
 
     __graft_entry__.dryrun_multichip(8)
